@@ -8,12 +8,13 @@ by the hash of every source byte and flag, and loaded with ``ctypes``.
 Nothing is built when a module is imported: the first CUDA call builds.
 ``-Xptxas -v`` is always on, so every build reports its registers, stack
 and spills.  ``--use_fast_math`` is never passed (IEEE division and square
-root), and ``-fmad=false`` turns off nvcc's contraction of ``a * b + c``
-into one FMA: each statement then rounds as the plain PyTorch version's
-op does, and the kernel agrees with it bit for bit through a chaotic
-contact rollout.  With contraction on, differences of one rounding per
-step grew past the parity bars within 24 steps of the policy rollout
-(see PERF.md).
+root), and by default ``-fmad=false`` turns off nvcc's contraction of
+``a * b + c`` into one FMA: each statement then rounds as the plain
+PyTorch version's op does, and the kernel agrees with it bit for bit
+through a chaotic contact rollout.  With contraction on, differences of
+one rounding per step grow past the parity bars within 24 steps of the
+policy rollout; ``fmad=True`` builds that faster variant, which
+``chip_smoke.py`` times to price the choice (see PERF.md).
 """
 
 from __future__ import annotations
@@ -25,14 +26,17 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-O3", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
+_LOCK = threading.Lock()
+_SOURCE_LOCKS: dict[str, threading.Lock] = {}
 
 
 @dataclasses.dataclass
@@ -86,32 +90,43 @@ def _parse_ptxas(log: str, kernel: str = "oxc_rollout_kernel"):
     return regs, stack, st, ld
 
 
-def build_rollout_library(src) -> Built:
+def _compile(src, flags, out: Path, so: Path, log_path: Path):
+    """nvcc into ``out`` unless a finished build is there; returns
+    (nvcc seconds, whether the build was already there)."""
+    if so.exists() and log_path.exists():
+        return 0.0, True
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "oxc_model.h").write_text(src.text)
+    tmp = out / f"librollout.{os.getpid()}.so"
+    cmd = [_nvcc(), *flags, "-I", str(out), "-I", str(CSRC),
+           "-o", str(tmp), str(CSRC / "rollout.cu")]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{proc.stderr[-4000:]}")
+    log_path.write_text(proc.stdout + proc.stderr)
+    os.replace(tmp, so)
+    return seconds, False
+
+
+def build_rollout_library(src, fmad: bool = False) -> Built:
     """Compile (or load from ``build/``) the rollout kernel for one
-    model's emitted source ``src`` (``megakernel.KernelSource``)."""
+    model's emitted source ``src`` (``megakernel.KernelSource``);
+    ``fmad`` lets nvcc contract multiply-adds into FMAs."""
+    flags = NVCC_FLAGS + (f"-fmad={'true' if fmad else 'false'}",)
     shell = (CSRC / "rollout.cu").read_text()
     helpers = (CSRC / "rollout.cuh").read_text()
     digest = hashlib.sha256("\0".join(
-        (shell, helpers, src.text) + NVCC_FLAGS).encode()).hexdigest()[:16]
+        (shell, helpers, src.text) + flags).encode()).hexdigest()[:16]
     out = BUILD_DIR / f"rollout-{digest}"
     so = out / "librollout.so"
     log_path = out / "ptxas.txt"
-    seconds, cached = 0.0, True
-    if not (so.exists() and log_path.exists()):
-        cached = False
-        out.mkdir(parents=True, exist_ok=True)
-        (out / "oxc_model.h").write_text(src.text)
-        tmp = out / f"librollout.{os.getpid()}.so"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(out), "-I", str(CSRC),
-               "-o", str(tmp), str(CSRC / "rollout.cu")]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stderr[-4000:]}")
-        log_path.write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, so)
+    with _LOCK:
+        lock = _SOURCE_LOCKS.setdefault(digest, threading.Lock())
+    with lock:  # threads building one source share one nvcc run
+        seconds, cached = _compile(src, flags, out, so, log_path)
     log = log_path.read_text()
     lib = ctypes.CDLL(str(so))
     fn = lib.oxc_rollout_launch

@@ -29,13 +29,15 @@
 #include "oxc_model.h"
 
 #define OXC_NA_ROWS 1
+// one warp per block: a batch of 4096 spreads over 128 SMs
+#define OXC_BLOCK 32
 
 struct OxcMlp {
   int n_layers;
   int dims[OXC_MAX_LAYERS + 1];
 };
 
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(OXC_BLOCK)
 oxc_rollout_kernel(const float* __restrict__ qpos,
                    const float* __restrict__ qvel,
                    const float* __restrict__ act,
@@ -161,8 +163,7 @@ extern "C" int oxc_rollout_launch(
     if (dims[i] > OXC_MAX_WIDTH) return (int)cudaErrorInvalidValue;
   if (params && (dims[0] != OXC_NOBS || dims[n_layers] != OXC_NU))
     return (int)cudaErrorInvalidValue;
-  // one warp per block: a batch of 4096 spreads over 128 SMs
-  const int threads = 32;
+  const int threads = OXC_BLOCK;
   const int blocks = (B + threads - 1) / threads;
   const size_t shmem = params ? (size_t)n_params * sizeof(float) : 0;
   if (shmem > 48 * 1024) {

@@ -175,13 +175,12 @@ def philox_bits(seed: int, salt: int, step: int, count: int,
     """(count, B) uint32 values (in int64) of the stream (seed, salt) at
     ``step`` for each env: value j is lane j % 4 of the Philox block with
     counter (env, step, j // 4, 0)."""
+    n_blk = (count + 3) // 4
+    env = env.expand(n_blk, -1)
     zero = torch.zeros_like(env)
-    rows = []
-    for blk in range((count + 3) // 4):
-        out = philox4x32((env, zero + step, zero + blk, zero),
-                         (seed, salt))
-        rows.extend(out)
-    return torch.stack(rows[:count])
+    blk = torch.arange(n_blk, dtype=env.dtype, device=env.device)[:, None]
+    out = philox4x32((env, zero + step, zero + blk, zero), (seed, salt))
+    return torch.stack(out, dim=1).reshape(4 * n_blk, -1)[:count]
 
 
 def signed_unit(bits: torch.Tensor, dtype) -> torch.Tensor:
@@ -331,7 +330,8 @@ class RolloutFn:
     """
 
     def __init__(self, model: Model, batch: int, steps_per_call: int,
-                 hooks: EnvHooks, emit_obs: bool = False, policy=None):
+                 hooks: EnvHooks, emit_obs: bool = False, policy=None,
+                 fmad: bool = False):
         reason = sg.unsupported_reason(model)
         if reason is not None:
             raise ValueError(f"model not kernel-eligible: {reason}")
@@ -344,6 +344,7 @@ class RolloutFn:
         self.steps = steps_per_call
         self.emit_obs = emit_obs
         self.policy = policy
+        self.fmad = fmad
         self.na_rows = max(model.na, 1)
         if policy is not None:
             self.dims = [self.spec.n_obs, *policy.hidden, self.spec.nu]
@@ -410,7 +411,7 @@ class RolloutFn:
         if self._lib is None:
             from . import build
             src = kernel_source(self.model, self.hooks, "float")
-            self._lib = build.build_rollout_library(src)
+            self._lib = build.build_rollout_library(src, fmad=self.fmad)
         return self._lib
 
     def _launch(self, qpos, qvel, act, ws, time, ctrl, seed, params):
@@ -547,9 +548,11 @@ class RolloutFn:
 
 def build_rollout(model: Model, batch: int, steps_per_call: int,
                   hooks: EnvHooks, emit_obs: bool = False,
-                  policy=None) -> RolloutFn:
+                  policy=None, fmad: bool = False) -> RolloutFn:
     """The K-step rollout function for ``model`` (see :class:`RolloutFn`);
     ``policy`` is an ``MLPPolicy`` whose layer sizes and exploration sigma
-    the kernel takes at run time (its weights are call inputs)."""
+    the kernel takes at run time (its weights are call inputs).  ``fmad``
+    builds the kernel with FMA contraction: faster, but it no longer
+    rounds as the plain version does (see ``ops.build``)."""
     return RolloutFn(model, batch, steps_per_call, hooks, emit_obs=emit_obs,
-                     policy=policy)
+                     policy=policy, fmad=fmad)

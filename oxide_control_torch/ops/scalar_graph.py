@@ -1112,6 +1112,29 @@ def _row_force_act(bk, r, jar_r):
     return bk.where(act, -r["D"] * jar_r, 0.0), act
 
 
+def _dphi_stacked(bk, rows, jar, jp, d0, sg):
+    """The line search's ``dphi`` on the torch backend, over ``(rows, B)``
+    stacks: every element goes through the same ops in the same order as
+    the per-row form (the sum over rows stays a sequential loop), so the
+    result is bit-identical, from about a tenth of the torch calls."""
+    st = lambda xs: torch.stack([bk.full(x) for x in xs])
+    jar_s, jp_s = st(jar), st(jp)
+    neg_d = st([-r["D"] for r in rows])
+    exists = st([r["exists"] for r in rows])
+
+    def dphi(alpha):
+        s = d0 + alpha * sg
+        jar_a = jar_s + alpha * jp_s
+        act = exists & (jar_a < 0)
+        f_a = torch.where(act, neg_d * jar_a, torch.zeros_like(jar_a))
+        df = f_a * jp_s
+        for i in range(len(rows)):
+            s = s - df[i]
+        return s
+
+    return dphi
+
+
 def _row_cost(bk, r, jar_r):
     act = r["exists"] & (jar_r < 0)
     return bk.where(act, 0.5 * r["D"] * jar_r * jar_r, 0.0)
@@ -1212,6 +1235,9 @@ def _linesearch_scalar(bk, rows, jar, jp, d0, sg, n_grow=12, n_bisect=26):
             f_a, _ = _row_force_act(bk, r, jar_a)
             s = s - f_a * jpr
         return s
+
+    if isinstance(bk, TorchBackend) and rows:
+        dphi = _dphi_stacked(bk, rows, jar, jp, d0, sg)
 
     def grow(c):
         hi = c[0]

@@ -21,11 +21,3 @@ import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
-
-
-def pytest_configure(config):
-    config.addinivalue_line(
-        "markers",
-        "cuda: needs a CUDA card (skips without one); on the GPU run "
-        "python -m pytest --noconftest tests/test_torch_cuda.py -m cuda",
-    )

@@ -191,6 +191,17 @@ def test_philox_matches_python_ints(seed):
     np.testing.assert_array_equal(got, want)
 
 
+def test_philox_bits_layout():
+    """Value j of an env's draw is lane j % 4 of the Philox block with
+    counter (env, step, j // 4, 0) under key (seed, salt)."""
+    env = torch.tensor([0, 5, 2 ** 20])
+    got = mk.philox_bits(77, mk.SALT_RESET, 3, 10, env).numpy()
+    for col, e in enumerate(env.tolist()):
+        want = [_philox_int((e, 3, j // 4, 0), (77, mk.SALT_RESET))[j % 4]
+                for j in range(10)]
+        np.testing.assert_array_equal(got[:, col], want)
+
+
 def test_box_muller_clamp_is_finite():
     """bits 0x7FFFFFFF map to exactly 1.0 in f32, so 1 - s = 0: the clamp
     keeps log(u1) finite."""

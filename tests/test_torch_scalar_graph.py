@@ -108,3 +108,25 @@ def test_quat_helpers_match_reference(fn):
         np.stack([np.broadcast_to(np.asarray(x), (B,)) for x in got]),
         np.stack([np.broadcast_to(np.asarray(x), (B,)) for x in want]),
         rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_stacked_dphi_is_bit_identical_to_per_row(dtype):
+    """The torch backend's line-search derivative over (rows, B) stacks
+    equals the per-row form the emitter writes, bit for bit, with constant
+    and tensor coefficients mixed as the contact and limit rows give them."""
+    rng = np.random.default_rng(5)
+    bk = sg.TorchBackend(B, dtype, "cpu")
+    T = lambda *shape: torch.tensor(rng.normal(size=shape), dtype=dtype)
+    rows = [dict(D=T(B) if i % 3 else 0.75,
+                 exists=(T(B) > 0) if i % 4 else True) for i in range(9)]
+    jar = [T(B) for _ in rows]
+    jp = [T(B) if i != 4 else 0.0 for i in range(len(rows))]
+    d0, slope = T(B), T(B)
+    stacked = sg._dphi_stacked(bk, rows, jar, jp, d0, slope)
+    for alpha in (T(B), bk.full(0.0), bk.full(4.0 ** 12)):
+        want = d0 + alpha * slope
+        for r, jr, jpr in zip(rows, jar, jp):
+            f_a, _ = sg._row_force_act(bk, r, jr + alpha * jpr)
+            want = want - f_a * jpr
+        assert torch.equal(stacked(alpha), want)
