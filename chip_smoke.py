@@ -1,24 +1,33 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: ``python3 chip_smoke.py``.
 
-Drives the port's main path -- ``FastRollout`` on cheetah-run at 4096 envs,
-200 steps per call, with uniform ctrl and with the in-kernel (64, 64)
-policy collecting trajectories -- through the hand-written CUDA rollout
-kernel, after building it from the sources in this checkout and holding it
-against its plain PyTorch version.  Phases, each fatal on failure:
+Drives the port's main path -- ``FastRollout`` through the hand-written
+CUDA rollout kernel on six rows of the reference bench: cheetah-run@4096
+and walker-walk@4096 (K = 200), cartpole-swingup@1024 (K = 200, RK4),
+humanoid-run@8192 (K = 100, free root joint) with uniform ctrl, and the
+in-kernel (64, 64) policy collecting trajectories on cheetah (K = 200)
+and humanoid (K = 100) -- after building every kernel from the sources in
+this checkout and holding each against its plain PyTorch version.
+Phases, each fatal on failure:
 
 1. device: the card's name and power limit;
-2. build: nvcc for sm_90a, every distinct source at once, with seconds,
-   emitted lines, registers, spills;
+2. build: nvcc for sm_90a, one process per distinct source, all started
+   at once in the background (seconds, emitted lines, registers, stack,
+   spills of each);
 3. Philox: the Random123 known-answer vectors, computed on the card;
-4. parity: kernel vs plain version through resets, at the main path's
-   shapes (B = 4096, K = 200) with ctrl input and with the policy +
-   collection, and at B = 4096, K = 24 for two options off the main path
-   (exploration noise, Gaussian reset noise); the two main-path modes also
-   time the kernel and the plain version on the same inputs, and the
-   kernel built with FMA contraction (the price of bit-exact parity);
-5. main path: 1 warm-up + 10 timed calls of each row (CUDA events), with
+4. plain: the plain version of every parity mode, run on the card while
+   nvcc works;
+5. parity: the kernel on the same inputs, through resets, against the
+   plain version's outputs (bars below; every output is expected to be
+   bit-identical), and each main-path row's kernel timed on its own parity
+   inputs, plus the FMA-contracted cheetah build (the price of bit-exact
+   parity);
+6. main path: 1 warm-up + 10 timed calls of each row (CUDA events), with
    the kernel's launch count set to 0 before and read after those calls;
-6. the kernels line (JSON) and the last line (JSON).
+7. the kernels line (JSON) and the last line (JSON).
+
+Parity runs each main-path row at its own B and K, pendulum-swingup
+(which has no bench row) at B = 1024, K = 200, and the two options off
+the main path (exploration noise, Gaussian reset noise) at K = 24.
 
 Needs one CUDA card; exits non-zero without one.
 """
@@ -38,10 +47,26 @@ from oxide_control_torch.ops import megakernel as mk
 from oxide_control_torch.parallel.rollout import FastRollout
 from oxide_control_torch.policy import MLPPolicy
 
-B, K = 4096, 200     # the main path's shapes
-K_OPTION = 24        # parity depth of the options off the main path
+# the tasks and their batches (the reference bench's, bench.py:67-98)
+BATCH = {"cheetah/run": 4096, "walker/walk": 4096, "cartpole/swingup": 1024,
+         "pendulum/swingup": 1024, "humanoid/run": 8192}
+# the main path's rows: (name, task, K, in-kernel policy + collection)
+ROWS = (
+    ("cheetah-run@4096", "cheetah/run", 200, False),
+    ("run-policy-obs@4096", "cheetah/run", 200, True),
+    ("walker-walk@4096", "walker/walk", 200, False),
+    ("cartpole-swingup@1024", "cartpole/swingup", 200, False),
+    ("humanoid-run@8192", "humanoid/run", 100, False),
+    ("humanoid-run-policy-obs@8192", "humanoid/run", 100, True),
+)
+# parity modes beside the rows (each row is a mode at its own B and K):
+# (label, task, K, variant)
+EXTRA_MODES = (
+    ("pendulum-swingup@1024", "pendulum/swingup", 200, "ctrl"),
+    ("cheetah explore", "cheetah/run", 24, "explore"),
+    ("cheetah gaussian_reset", "cheetah/run", 24, "gauss"),
+)
 N_TIMED = 10
-ROWS = (("cheetah-run@4096", "ctrl"), ("run-policy-obs@4096", "policy"))
 # peaks of one H100 SXM (NVIDIA data sheet, 700 W): 67 TFLOP/s f32 counts
 # an FMA as two, so 33.5e12 separate lane-ops/s; special functions at 16
 # per SM per clock (132 SMs, 1.98 GHz boost); 3.35 TB/s of HBM
@@ -49,10 +74,11 @@ LANE_OPS_PER_S = 33.5e12
 SFU_OPS_PER_S = 132 * 16 * 1.98e9
 BYTES_PER_S = 3.35e12
 BARS = dict(qpos=1e-4, qvel=1e-3, reward_sum=1e-4, obs=1e-4, ctrls=1e-5)
+T0 = time.perf_counter()
 
 
 def log(*args):
-    print(*args, flush=True)
+    print(f"[{time.perf_counter() - T0:7.1f} s]", *args, flush=True)
 
 
 def device_phase():
@@ -69,25 +95,35 @@ def device_phase():
     return name, smi
 
 
-def build_phase(fns):
-    """Build every kernel at once: one nvcc for each distinct source (the
-    others wait for it and load its library from build/)."""
-    t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(fns)) as pool:
-        built = dict(zip(fns, pool.map(lambda fn: fn.build(),
-                                       fns.values())))
-    log(f"build: {time.perf_counter() - t0:.2f} s with emission")
+def start_builds(fns):
+    """One thread per kernel object, all at once: one nvcc for each
+    distinct source (threads of one source wait for it and load its
+    library from build/).  Returns the pool and the futures."""
+    pool = ThreadPoolExecutor(len(fns))
+    return pool, {label: pool.submit(fn.build) for label, fn in fns.items()}
+
+
+def finish_builds(pool, futures, t_start):
+    built = {label: f.result() for label, f in futures.items()}
+    pool.shutdown()
+    log(f"build: all sources built {time.perf_counter() - t_start:.2f} s "
+        "after the start of the build phase")
+    seen = set()
     for label, b in built.items():
-        log(f"  {label}: nvcc {b.seconds:.2f} s (cached: {b.cached}), "
-            f"{b.emitted_lines} emitted lines, {b.registers} registers, "
-            f"{b.stack_bytes} B stack, {b.spill_stores} B spill stores, "
-            f"{b.spill_loads} B spill loads; step {b.step_ops} lane-ops "
-            f"({b.step_sfu_ops} special-function)")
-    # the main path's library, with the seconds of the one thread that ran
-    # nvcc for its source
-    main = built["ctrl"]
-    return dataclasses.replace(main, seconds=max(
-        b.seconds for b in built.values() if b.so_path == main.so_path))
+        if b.so_path in seen:
+            continue
+        seen.add(b.so_path)
+        nvcc_s = max(x.seconds for x in built.values()
+                     if x.so_path == b.so_path)
+        log(f"  {label}: nvcc {nvcc_s:.2f} s, {b.emitted_lines} emitted "
+            f"lines, {b.registers} registers, {b.stack_bytes} B stack, "
+            f"{b.spill_stores} B spill stores, {b.spill_loads} B spill "
+            f"loads; step {b.step_ops} lane-ops ({b.step_sfu_ops} "
+            "special-function)")
+    # each library with the seconds of the one thread that ran its nvcc
+    return {label: dataclasses.replace(b, seconds=max(
+        x.seconds for x in built.values() if x.so_path == b.so_path))
+        for label, b in built.items()}
 
 
 def philox_phase():
@@ -106,31 +142,39 @@ def philox_phase():
     log("philox: known-answer vectors match on the card")
 
 
-def parity_inputs(benv, fn, gen):
+def parity_inputs(benv, fn, seed=7):
     """A reset batch whose step counters are spread over the episode, so
     that some envs cross the time limit inside the window, with the
     call's ctrl or policy weights."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    b = fn.batch
     data = benv.reset(gen)
-    n0 = torch.randint(0, fn.spec.limit_n, (B,), generator=gen,
+    n0 = torch.randint(0, fn.spec.limit_n, (b,), generator=gen,
                        device="cuda")
     state = (data.qpos.T.contiguous(), data.qvel.T.contiguous(),
-             torch.zeros((1, B), device="cuda"),
+             torch.zeros((1, b), device="cuda"),
              data.qacc_warmstart.T.contiguous(),
              (n0.to(torch.float32) * fn.spec.h)[None].contiguous())
-    seed = torch.tensor([20261016], dtype=torch.int32, device="cuda")
     ctrl = params = None
     if fn.policy is None:
-        ctrl = torch.empty((fn.steps, fn.spec.nu, B), device="cuda")
+        ctrl = torch.empty((fn.steps, fn.spec.nu, b), device="cuda")
         ctrl.uniform_(-1.0, 1.0, generator=gen)
     else:
         params = fn.policy.kernel_params()
-    return state + (ctrl, seed, params)
+    return state + (ctrl, torch.tensor([20261016], dtype=torch.int32,
+                                       device="cuda"), params)
+
+
+def resets_of(fn, args, out):
+    """Time-limit crossings of the call plus divergence resets."""
+    n_in = torch.round(args[4][0] / fn.spec.h)
+    return int(((n_in + fn.steps) // fn.spec.limit_n).sum() + out[6].sum())
 
 
 def time_kernel(fn, args):
     """ms per call of the kernel alone, 1 warm-up + N_TIMED calls between
-    CUDA events."""
-    fn(*args)
+    CUDA events; returns (ms, the warm-up's outputs)."""
+    out = fn(*args)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -139,7 +183,7 @@ def time_kernel(fn, args):
         fn(*args)
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / N_TIMED
+    return start.elapsed_time(end) / N_TIMED, out
 
 
 def max_errors(ko, po, collect):
@@ -152,58 +196,75 @@ def max_errors(ko, po, collect):
     return {k: float(x.abs().max()) for k, x in e.items()}
 
 
-def parity_phase(benv, fns, fma):
-    """Kernel vs plain version on the card, one mode at a time; for the
-    main path's two modes also the kernel's and the plain version's time
-    on the same inputs, and the FMA-contracted build's time and drift."""
+def plain_phase(modes):
+    """The plain version of every parity mode, on the card, with the
+    wall time of each call between synchronizes (the first call of each
+    mode, so its CUDA-graph capture of the step is included)."""
     res = {}
-    for mode, fn in fns.items():
-        gen = torch.Generator(device="cuda").manual_seed(7)
-        args = parity_inputs(benv, fn, gen)
-        ko = fn(*args)
+    for label, (benv, fn) in modes.items():
+        args = parity_inputs(benv, fn)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         po = fn.plain(*args)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
-        me = max_errors(ko, po, fn.emit_obs)
-        if fn.emit_obs and not torch.equal(ko[9], po[9]):
-            raise AssertionError(f"{mode}: dones differ")
-        n_in = torch.round(args[4][0] / fn.spec.h)
-        resets = int(((n_in + fn.steps) // fn.spec.limit_n).sum()
-                     + ko[6].sum())
-        same = all(torch.equal(a, b) for a, b in zip(ko, po))
-        log(f"parity {mode} (B={fn.batch}, K={fn.steps}, {resets} resets): "
-            + ", ".join(f"{k} {v:.3e} (bar {BARS[k]:g})"
-                        for k, v in me.items())
-            + f"; every output bit-identical: {same}; plain version "
-            f"{plain_ms:.1f} ms")
-        if resets == 0:
-            raise AssertionError(f"{mode}: no env crossed the time limit")
-        for k, v in me.items():
-            if not v <= BARS[k]:
-                raise AssertionError(f"{mode}: {k} error {v} over "
-                                     f"{BARS[k]}")
-        res[mode] = dict(errs=me, plain_ms=plain_ms, resets=resets)
-        if fn.steps == K:
-            res[mode]["ms"] = time_kernel(fn, args)
-            log(f"  kernel {res[mode]['ms']:.4f} ms per call on these "
-                "inputs")
-        if mode == "ctrl":
-            fo = fma(*args)
-            fma_ms = time_kernel(fma, args)
-            log(f"  FMA-contracted build (not on the path): {fma_ms:.4f} ms "
-                f"per call against {res[mode]['ms']:.4f}; drift from the "
-                "plain version: "
-                + ", ".join(f"{k} {v:.3e}"
-                            for k, v in max_errors(fo, po, False).items()))
+        res[label] = dict(args=args, out=po, plain_ms=plain_ms)
+        log(f"plain {label} (B={fn.batch}, K={fn.steps}): {plain_ms:.1f} "
+            "ms with the graph capture")
     return res
 
 
-def main_path_phase(benv, rolls):
+def parity_phase(modes, plain):
+    """Kernel vs plain version on the card, one mode at a time."""
+    res = {}
+    for label, (benv, fn) in modes.items():
+        args, po = plain[label]["args"], plain[label]["out"]
+        ko = fn(*args)
+        torch.cuda.synchronize()
+        me = max_errors(ko, po, fn.emit_obs)
+        if fn.emit_obs and not torch.equal(ko[9], po[9]):
+            raise AssertionError(f"{label}: dones differ")
+        resets = resets_of(fn, args, ko)
+        same = all(torch.equal(a, b) for a, b in zip(ko, po))
+        log(f"parity {label} (B={fn.batch}, K={fn.steps}, {resets} "
+            "resets): " + ", ".join(f"{k} {v:.3e} (bar {BARS[k]:g})"
+                                    for k, v in me.items())
+            + f"; every output bit-identical: {same}")
+        if resets == 0:
+            raise AssertionError(f"{label}: no env crossed the time limit")
+        for k, v in me.items():
+            if not v <= BARS[k]:
+                raise AssertionError(f"{label}: {k} error {v} over "
+                                     f"{BARS[k]}")
+        res[label] = dict(errs=me, resets=resets, same=same)
+    return res
+
+
+def timing_phase(rolls, plain, fma):
+    """Each main-path row's kernel on its own parity inputs, and the
+    FMA-contracted cheetah build on the cheetah-run inputs."""
+    res = {}
+    for row, roll in rolls.items():
+        kern, args = roll.kernel, plain[row]["args"]
+        ms, out = time_kernel(kern, args)
+        res[row] = dict(ms=ms, resets=resets_of(kern, args, out))
+        log(f"kernel {row}: {ms:.4f} ms per call ({res[row]['resets']} "
+            "resets)")
+        if row == "cheetah-run@4096":
+            fo = fma(*args)
+            fma_ms, _ = time_kernel(fma, args)
+            log(f"  FMA-contracted build (not on the path): {fma_ms:.4f} ms "
+                f"per call against {ms:.4f}; drift from the plain version: "
+                + ", ".join(f"{k} {v:.3e}" for k, v in max_errors(
+                    fo, plain[row]["out"], False).items()))
+    return res
+
+
+def main_path_phase(rolls):
     """FastRollout rows at full size; launches counted around the run."""
     rows = {}
     for name, roll in rolls.items():
+        b, k = roll.benv.num_envs, roll.steps_per_call
         gen = torch.Generator(device="cuda").manual_seed(1)
         state = roll.init(gen)
         roll.kernel.launches = 0
@@ -212,8 +273,8 @@ def main_path_phase(benv, rolls):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        rew = torch.zeros(B, device="cuda")
-        ndiv = torch.zeros(B, device="cuda")
+        rew = torch.zeros(b, device="cuda")
+        ndiv = torch.zeros(b, device="cuda")
         for _ in range(N_TIMED):
             state, traj = roll.run(state, gen)
             rew += traj.reward_sum
@@ -231,18 +292,18 @@ def main_path_phase(benv, rolls):
             if not bool(torch.isfinite(t).all()):
                 raise AssertionError(f"{name}: non-finite state")
         if roll.collect:
-            if (tuple(traj.obs.shape) != (K, roll.n_obs, B)
+            if (tuple(traj.obs.shape) != (k, roll.n_obs, b)
                     or tuple(traj.ctrls.shape)
-                    != (K, roll.kernel.spec.nu, B)):
+                    != (k, roll.kernel.spec.nu, b)):
                 raise AssertionError(f"{name}: trajectory shapes")
             if not bool(torch.isfinite(traj.obs).all()):
                 raise AssertionError(f"{name}: non-finite observations")
-        rate = B * K / (ms * 1e-3)
+        rate = b * k / (ms * 1e-3)
         rows[name] = dict(launches=launches, rate=rate)
         log(f"main path {name}: {rate:.6e} env-steps/s ({ms:.4f} ms per "
-            f"call of {B}x{K}), {launches} launches, "
+            f"call of {b}x{k}), {launches} launches, "
             f"{int(ndiv.sum())} divergences, mean reward "
-            f"{float(rew.mean()) / (N_TIMED * K):.4f}")
+            f"{float(rew.mean()) / (N_TIMED * k):.4f}")
     return rows
 
 
@@ -279,51 +340,73 @@ def bound(fn, built, resets):
 
 def main():
     name, smi = device_phase()
-    benv = suite.load_batched("cheetah", "run", B)
-    model = benv.model
     gen = torch.Generator(device="cuda").manual_seed(0)
-    hooks = benv.task.kernel_hooks(model)
-    policy = MLPPolicy(hooks.n_obs, model.nu, hidden=(64, 64), generator=gen)
-    explorer = MLPPolicy(hooks.n_obs, model.nu, hidden=(64, 64),
+    benvs = {key: suite.load_batched(*key.split("/"), b)
+             for key, b in BATCH.items()}
+    policies = {}
+    for key in ("cheetah/run", "humanoid/run"):
+        model = benvs[key].model
+        policies[key] = MLPPolicy(
+            benvs[key].task.kernel_hooks(model).n_obs, model.nu,
+            hidden=(64, 64), generator=gen)
+    rolls = {row: FastRollout(benvs[key], k,
+                              policy=policies[key] if pol else None,
+                              collect=pol)
+             for row, key, k, pol in ROWS}
+    cheetah = benvs["cheetah/run"]
+    hooks = cheetah.task.kernel_hooks(cheetah.model)
+    explorer = MLPPolicy(hooks.n_obs, cheetah.model.nu, hidden=(64, 64),
                          explore_sigma=0.3, generator=gen)
     gauss = dataclasses.replace(hooks, reset_qpos_sigma=[0.0] * 3 + [0.05] * 6,
                                 reset_qvel_sigma=0.1)
-    rolls = {row: FastRollout(benv, K, policy=policy if mode == "policy"
-                              else None, collect=mode == "policy")
-             for row, mode in ROWS}
-    fns = {
-        "ctrl": rolls["cheetah-run@4096"].kernel,
-        "policy": rolls["run-policy-obs@4096"].kernel,
-        "explore": mk.build_rollout(model, B, K_OPTION, hooks, emit_obs=True,
-                                    policy=explorer),
-        "gaussian_reset": mk.build_rollout(model, B, K_OPTION, gauss,
-                                           emit_obs=True),
-    }
-    fma = mk.build_rollout(model, B, K, hooks, fmad=True)
+    modes = {row: (roll.benv, roll.kernel) for row, roll in rolls.items()}
+    for label, key, k, variant in EXTRA_MODES:
+        benv = benvs[key]
+        modes[label] = (benv, mk.build_rollout(
+            benv.model, benv.num_envs, k,
+            gauss if variant == "gauss"
+            else benv.task.kernel_hooks(benv.model),
+            emit_obs=variant != "ctrl",
+            policy=explorer if variant == "explore" else None))
+    fma = mk.build_rollout(cheetah.model, 4096, 200, hooks, fmad=True)
 
-    built = build_phase({**fns, "fmad": fma})
+    t_build = time.perf_counter()
+    pool, futures = start_builds(
+        {**{label: fn for label, (_, fn) in modes.items()}, "fmad": fma})
     philox_phase()
-    par = parity_phase(benv, fns, fma)
-    rows = main_path_phase(benv, rolls)
+    t = time.perf_counter()
+    plain = plain_phase(modes)
+    log(f"phase plain: {time.perf_counter() - t:.1f} s")
+    built = finish_builds(pool, futures, t_build)
+    t = time.perf_counter()
+    par = parity_phase(modes, plain)
+    timed = timing_phase(rolls, plain, fma)
+    log(f"phase parity + timing: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    rows = main_path_phase(rolls)
+    log(f"phase main path: {time.perf_counter() - t:.1f} s")
 
     kernels = []
-    for row, mode in ROWS:
-        fn, p = fns[mode], par[mode]
-        b_ms, by, work = bound(fn, built, p["resets"])
+    for row, roll in rolls.items():
+        kern, b, p = roll.kernel, built[row], par[row]
+        b_ms, by, work = bound(kern, b, timed[row]["resets"])
         kernels.append(dict(
             name=f"rollout[{row}]", route="cuda",
             source="oxide_control_torch/ops/csrc/rollout.cu",
             replaces=mk.REPLACES, launches=rows[row]["launches"],
-            max_abs_err=max(p["errs"].values()), ms=p["ms"],
-            plain_ms=p["plain_ms"], bound_ms=b_ms, bound_by=by,
+            max_abs_err=max(p["errs"].values()), ms=timed[row]["ms"],
+            plain_ms=plain[row]["plain_ms"], bound_ms=b_ms, bound_by=by,
             library_ms=None, env_steps_per_s=rows[row]["rate"],
-            registers=built.registers, spill_stores=built.spill_stores,
-            spill_loads=built.spill_loads, build_s=built.seconds, work=work,
+            bit_identical=p["same"], registers=b.registers,
+            stack_bytes=b.stack_bytes, spill_stores=b.spill_stores,
+            spill_loads=b.spill_loads, build_s=b.seconds,
+            emitted_lines=b.emitted_lines,
+            step_lane_ops=b.step_ops + b.env_ops, work=work,
         ))
-        log(f"kernel {row}: {p['ms']:.4f} ms per call, bound {b_ms:.4f} ms "
-            f"({by}), plain version {p['plain_ms']:.1f} ms per call, "
-            f"{work}")
-    log(f"card: {smi}")
+        log(f"kernel {row}: {timed[row]['ms']:.4f} ms per call, bound "
+            f"{b_ms:.4f} ms ({by}), plain version "
+            f"{plain[row]['plain_ms']:.1f} ms per call, {work}")
+    log(f"card: {smi}; whole run {time.perf_counter() - T0:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -10,11 +10,14 @@
 // (weights staged once per block in shared memory), the emitted mj_step
 // (oxc_step, from ops/scalar_graph.py through ops/emit.py), reward, time
 // limit, divergence test, masked auto-reset with Philox noise, and the
-// trajectory rows stored to global memory.
+// trajectory rows stored to global memory.  Every per-env array is sized
+// by the OXC_* macros of the model's emitted header (oxc_model.h), so one
+// shell serves every model of the suite.
 //
-// What bounds it: compute.  One cheetah env-step is ~1e5 scalar f32
-// lane-ops (the emitter counts them exactly) against a few hundred bytes
-// of state and ctrl, so the kernel is far above the card's ridge point;
+// What bounds it: compute.  One env-step is ~1e4 (cartpole, four RK4
+// passes) to ~4e5 (humanoid) scalar f32 lane-ops (the emitter counts them
+// exactly) against a few hundred bytes of state and ctrl, so the kernel is
+// far above the card's ridge point;
 // square roots, logs, cosines, tanh and divisions add a second bound at
 // the special-function rate.  The design keeps all of it in registers
 // (spilling to L1-resident local memory where the step body needs more),

@@ -22,9 +22,9 @@ as the true division torch performs there.
 
 The emitter also counts the dynamic work of what it emits: every
 statement is one lane-op, weighted by the trip counts of the loops around
-it; square roots, logarithms, trigonometric and hyperbolic functions and
-divisions are also counted apart as special-function ops.  These counts
-give the kernel's compute bound.
+it; square roots, exponentials, logarithms, trigonometric and hyperbolic
+functions and divisions are also counted apart as special-function ops.
+These counts give the kernel's compute bound.
 """
 
 from __future__ import annotations
@@ -38,11 +38,13 @@ from .scalar_graph import _is_const
 # C spellings of the unary math functions, per value type
 _FUNCS = {
     "float": dict(sqrt="sqrtf", rsqrt="oxc_rsqrt", sin="sinf", cos="cosf",
-                  log="logf", tanh="tanhf", abs="fabsf", pow="powf"),
+                  exp="expf", log="logf", tanh="tanhf", abs="fabsf",
+                  pow="powf"),
     "double": dict(sqrt="sqrt", rsqrt="oxc_rsqrt", sin="sin", cos="cos",
-                   log="log", tanh="tanh", abs="fabs", pow="pow"),
+                   exp="exp", log="log", tanh="tanh", abs="fabs", pow="pow"),
 }
-_SFU = frozenset({"sqrt", "rsqrt", "sin", "cos", "log", "tanh", "pow"})
+_SFU = frozenset({"sqrt", "rsqrt", "sin", "cos", "exp", "log", "tanh",
+                  "pow"})
 
 PRELUDE = r"""
 #ifndef OXC_HD
@@ -252,6 +254,9 @@ class Emitter:
 
     def cos(self, x):
         return math.cos(x) if _is_const(x) else self._call("cos", x)
+
+    def exp(self, x):
+        return math.exp(x) if _is_const(x) else self._call("exp", x)
 
     def log(self, x):
         return math.log(x) if _is_const(x) else self._call("log", x)

@@ -32,13 +32,14 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import inspect
 import math
 from typing import Callable, Sequence
 
 import numpy as np
 import torch
 
-from ..model import Model
+from ..model import JointType, Model
 from . import scalar_graph as sg
 
 # the TPU kernel this replaces: build_rollout's pl.pallas_call
@@ -66,10 +67,18 @@ class EnvHooks:
     values and the backend ``bk`` (see ``ops.scalar_graph``), so the same
     hook runs in the plain version and is emitted into the kernel.
 
+    With ``needs_fk`` the reward also receives a keyword argument ``fk``:
+    ``scalar_graph.build_fk`` of the post-step q (body frames and site
+    positions from the same expressions the step computes).  ``observe``
+    receives ``fk`` of the pre-step q only if its signature takes it, so
+    a task may read frames in its reward while observing raw coordinates.
+
     Reset distribution: qpos[i] resets to
     ``reset_qpos0[i] + U(-u_i, u_i) + N(0, s_i^2)`` with
     ``u = reset_noise * reset_mask`` and ``s = reset_qpos_sigma``; qvel
-    resets to ``N(0, reset_qvel_sigma^2)`` per dof.
+    resets to ``N(0, reset_qvel_sigma^2)`` per dof.  Quaternion
+    coordinates must have zero amplitude in both (:func:`env_spec`
+    raises otherwise).
     """
 
     reward: Callable
@@ -81,6 +90,7 @@ class EnvHooks:
     reset_qvel_sigma: float = 0.0
     observe: Callable | None = None
     n_obs: int = 0
+    needs_fk: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,9 +129,50 @@ def env_spec(model: Model, hooks: EnvHooks) -> EnvSpec:
     uamp = [float(hooks.reset_noise) * m for m in mask]
     qsig = ([0.0] * nq if hooks.reset_qpos_sigma is None
             else [float(x) for x in hooks.reset_qpos_sigma])
+    for i in _quat_coords(model):
+        if uamp[i] or qsig[i]:
+            raise ValueError(
+                f"qpos[{i}] is a quaternion coordinate: its reset amplitude "
+                f"must be 0 (uniform {uamp[i]}, Gaussian {qsig[i]}), or a "
+                "reset leaves the unit sphere")
     return EnvSpec(nq=nq, nv=model.nv, nu=model.nu, n_obs=hooks.n_obs, h=h,
                    limit_n=limit_n, qpos0=tuple(qpos0), uamp=tuple(uamp),
                    qsig=tuple(qsig), vsig=float(hooks.reset_qvel_sigma))
+
+
+def _quat_coords(model: Model) -> list[int]:
+    """qpos indices that hold quaternion components (free joints; ball
+    joints are outside the kernel class)."""
+    out = []
+    for j in range(model.njnt):
+        if model.jnt_type[j] == JointType.FREE:
+            adr = model.jnt_qposadr[j]
+            out += range(adr + 3, adr + 7)
+    return out
+
+
+def bind_hooks(model: Model, hooks: EnvHooks, bk):
+    """``(observe(q, v), reward(q, v, c))``: the task's hooks on backend
+    ``bk``, with ``fk`` passed as :class:`EnvHooks` says (the reference's
+    rule, ``oxide_control_tpu/ops/megakernel.py:160-177``).  The plain
+    version and the emitted kernel both call the hooks through this, so
+    they evaluate the same expressions in the same order."""
+    fk = sg.build_fk(model, bk) if hooks.needs_fk else None
+    obs_fk = False
+    if fk is not None and hooks.observe is not None:
+        params = inspect.signature(hooks.observe).parameters.values()
+        obs_fk = any(p.kind == p.VAR_KEYWORD or p.name == "fk"
+                     for p in params)
+
+    def observe(q, v):
+        kw = {"fk": fk(q)} if obs_fk else {}
+        return list(hooks.observe(bk, q, v, **kw))
+
+    def reward(q, v, c):
+        kw = {"fk": fk(q)} if fk is not None else {}
+        return hooks.reward(bk, q, v, c, **kw)
+
+    return observe, reward
 
 
 def reset_values(spec: EnvSpec, uni, z):
@@ -254,7 +305,7 @@ def kernel_source(model: Model, hooks: EnvHooks,
 
     eo = Emitter(ctype)
     q, v = eo.load("q", nq), eo.load("v", nv)
-    rows = list(hooks.observe(eo, q, v))
+    rows = bind_hooks(model, hooks, eo)[0](q, v)
     if len(rows) != n_obs:
         raise ValueError(f"observe gave {len(rows)} rows, n_obs={n_obs}")
     eo.store("obs", rows)
@@ -263,7 +314,7 @@ def kernel_source(model: Model, hooks: EnvHooks,
 
     er = Emitter(ctype)
     q, v, c = er.load("q", nq), er.load("v", nv), er.load("c", nu)
-    er.ret(hooks.reward(er, q, v, c))
+    er.ret(bind_hooks(model, hooks, er)[1](q, v, c))
     parts.append(er.function(
         f"{T} oxc_reward(const {T}* q, const {T}* v, const {T}* c)"))
 
@@ -311,6 +362,45 @@ def _pack_params(params, dims, device, dtype):
         flat.append(w.reshape(-1))
         flat.append(b.reshape(-1))
     return torch.cat(flat).to(device=device, dtype=dtype).contiguous()
+
+
+class _GraphedStep:
+    """The plain step captured once as a CUDA graph and replayed.
+
+    One step is some 1e4 (cartpole) to 2e5 (humanoid) small torch ops, and
+    on the card the host's launch cost (about 9 us per op) paces them.  A
+    replay runs the same kernels in the same order on the same inputs, so
+    it returns the eager step's results bit for bit, without that cost."""
+
+    def __init__(self, bk, step, spec: EnvSpec):
+        dev = bk.device
+        self.ins = [torch.zeros((n, bk.batch), device=dev, dtype=bk.dtype)
+                    for n in (spec.nq, spec.nv, spec.nv, spec.nu)]
+
+        def run():
+            q, v, w, c = (list(x) for x in self.ins)
+            qn, vn, _, wn = step(q, v, [], w, c)
+            return [torch.stack([bk.full(x) for x in xs])
+                    for xs in (qn, vn, wn)]
+
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            run()  # warm-up outside the capture
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        # thread_local: other threads may use CUDA meanwhile (chip_smoke
+        # loads freshly built kernel libraries while this captures)
+        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+            self.outs = run()
+
+    def __call__(self, q, v, act, w, c):
+        for buf, xs in zip(self.ins, (q, v, w, c)):
+            if xs:
+                buf.copy_(torch.stack(xs))
+        self.graph.replay()
+        qn, vn, wn = (list(o.clone()) for o in self.outs)
+        return qn, vn, list(act), wn
 
 
 class RolloutFn:
@@ -464,16 +554,20 @@ class RolloutFn:
     def plain(self, qpos, qvel, act, ws, time, ctrl=None, seed=None,
               params=None):
         """The plain PyTorch version on ``qpos.device``: the scalar graph
-        on (B,) tensors in a Python K loop."""
+        on (B,) tensors in a Python K loop (on a card, its step replayed
+        from a CUDA graph: see :class:`_GraphedStep`)."""
         self._check(qpos, qvel, act, ws, time, ctrl, seed, params)
         s, B, K = self.spec, self.batch, self.steps
         dev, dtype = qpos.device, qpos.dtype
         key = (dev, dtype)
         if key not in self._plain_steps:
             bk = sg.TorchBackend(B, dtype, dev)
-            self._plain_steps[key] = (bk, sg.build_step(self.model, bk))
-        bk, step = self._plain_steps[key]
-        hooks = self.hooks
+            step = sg.build_step(self.model, bk)
+            if dev.type == "cuda":
+                step = _GraphedStep(bk, step, s)
+            self._plain_steps[key] = (bk, step,
+                                      *bind_hooks(self.model, self.hooks, bk))
+        bk, step, observe, reward = self._plain_steps[key]
         seed_i = int(seed.reshape(-1)[0].item())
         env = torch.arange(B, device=dev, dtype=torch.int64)
         h = s.h
@@ -490,7 +584,7 @@ class RolloutFn:
             layers = [(params[2 * i].to(dtype), params[2 * i + 1].to(dtype))
                       for i in range(len(self.dims) - 1)]
         for k in range(K):
-            obs = torch.stack([bk.full(o) for o in hooks.observe(bk, q, v)])
+            obs = torch.stack([bk.full(o) for o in observe(q, v)])
             if self.policy is not None:
                 cmat = mlp_forward(layers, obs)
                 if self.explore_sigma > 0.0:
@@ -518,7 +612,7 @@ class RolloutFn:
                     bad = bad | ~torch.isfinite(val) | (torch.abs(val) > 1e10)
             done = bad | (n >= s.limit_n)
             ndiv = ndiv + bad.to(dtype)
-            rew_t = torch.where(bad, 0.0, bk.full(hooks.reward(bk, q, v, c)))
+            rew_t = torch.where(bad, 0.0, bk.full(reward(q, v, c)))
             rew = rew + rew_t
             if self.emit_obs:
                 outs[8][k] = rew_t

@@ -1,10 +1,10 @@
 """Scalar-graph physics step, written once against a small backend.
 
-The port of ``oxide_control_tpu/ops/scalar_graph.py`` for the cheetah
-class (see :func:`supports`).  The whole ``mj_step`` of one env is built as
-a graph of elementwise operations on per-env scalars; the model's structure
-(tree topology, joint axes, geom pairs, constraint rows) is compiled away at
-build time:
+The port of ``oxide_control_tpu/ops/scalar_graph.py`` for the control
+suite's class (see :func:`supports`).  The whole ``mj_step`` of one env is
+built as a graph of elementwise operations on per-env scalars; the model's
+structure (tree topology, joint axes, geom pairs, constraint rows) is
+compiled away at build time:
 
 * every per-env scalar is either a **python float constant** (folded at
   build time in double precision -- structural zeros vanish, so the
@@ -12,9 +12,9 @@ build time:
   backend value;
 * every operation on backend values goes through Python operators or the
   backend object ``bk`` (``where``, ``maximum``, ``minimum``, ``clip``,
-  ``abs``, ``sqrt``, ``rsqrt``, ``sin``, ``cos``, ``log``, ``tanh``,
-  ``isfinite``, ``pow``, ``not_``, ``fori``), so one graph drives two
-  backends:
+  ``abs``, ``sqrt``, ``rsqrt``, ``sin``, ``cos``, ``exp``, ``log``,
+  ``tanh``, ``isfinite``, ``pow``, ``not_``, ``fori``), so one graph
+  drives two backends:
 
   - :class:`TorchBackend`: values are ``(B,)`` tensors -- the plain
     PyTorch version, on the CPU (tests) or the GPU (comparison);
@@ -128,6 +128,9 @@ class TorchBackend:
 
     def cos(self, x):
         return math.cos(x) if _is_const(x) else torch.cos(x)
+
+    def exp(self, x):
+        return math.exp(x) if _is_const(x) else torch.exp(x)
 
     def log(self, x):
         return math.log(x) if _is_const(x) else torch.log(x)
@@ -408,21 +411,30 @@ def unsupported_reason(model: Model) -> str | None:
     reference's ``supports``; each reason names the ROADMAP row that
     widens it:
 
-    * joints: hinge and slide (limits included)
-    * integrator: Euler (implicit joint damping included)
+    * joints: hinge and slide (limits included), and free joints alone on
+      their body
+    * integrator: Euler (implicit joint damping included) or RK4
     * solver: Newton with pyramidal cones at condim 1 or 3
     * contacts: plane-sphere and plane-capsule
-    * actuators: stateless motors (fixed gain, no bias) on joints
+    * actuators: stateless motors (fixed gain, no bias) on hinge or slide
+      joints
     * no tendons, equality, mocap bodies, friction loss or fluid forces
     """
     for j in range(model.njnt):
         jt = JointType(model.jnt_type[j])
-        if jt not in (JointType.HINGE, JointType.SLIDE):
-            return (f"{jt.name} joint: ball/free joints are ROADMAP Queue A "
-                    "item 9 (humanoid-run) and the later integrate_pos_sg")
-    if model.opt.integrator != Integrator.EULER:
-        return ("integrator %s: RK4 is ROADMAP Queue A item 9 "
-                "(cartpole-swingup)" % Integrator(model.opt.integrator).name)
+        if jt == JointType.BALL:
+            return ("BALL joint: ball joints (cable-swing) are ROADMAP "
+                    "Queue A item 10")
+        if jt == JointType.FREE and (
+                model.jnt_limited[j]
+                or model.body_jntnum[model.jnt_bodyid[j]] != 1):
+            # MuJoCo's compiler clears `limited` on free joints and rejects
+            # a free joint sharing its body, so MJCF never gets here
+            return "a free joint must be unlimited and alone on its body"
+    if model.opt.integrator not in (Integrator.EULER, Integrator.RK4):
+        return ("integrator %s: only Euler and RK4 run in the kernel; the "
+                "implicit integrators stay on the general path (ROADMAP "
+                "Queue A item 11)" % Integrator(model.opt.integrator).name)
     if model.opt.solver != SolverType.NEWTON:
         return "solver is not Newton: CG/PGS stay on the general path " \
                "(ROADMAP Queue A item 11)"
@@ -440,11 +452,14 @@ def unsupported_reason(model: Model) -> str | None:
         return "stateful actuators are ROADMAP Queue A item 10.1"
     for u in range(model.nu):
         if (TrnType(model.actuator_trntype[u]) != TrnType.JOINT
+                or JointType(model.jnt_type[model.actuator_trnid[u]])
+                not in (JointType.HINGE, JointType.SLIDE)
                 or DynType(model.actuator_dyntype[u]) != DynType.NONE
                 or GainType(model.actuator_gaintype[u]) != GainType.FIXED
                 or BiasType(model.actuator_biastype[u]) != BiasType.NONE):
-            return (f"actuator {u} is not a motor on a joint: other "
-                    "actuators are ROADMAP Queue A item 10.1")
+            return (f"actuator {u} is not a motor on a hinge or slide "
+                    "joint: other actuators and ball/free transmissions are "
+                    "ROADMAP Queue A item 10.1")
     if model.ntendon:
         return "tendons are ROADMAP Queue A items 10.1 and 10.5"
     if model.neq:
@@ -490,15 +505,17 @@ class _ModelConsts:
             "body_invweight0", "geom_pos", "geom_quat", "geom_size",
             "actuator_gear", "actuator_ctrlrange", "actuator_forcerange",
             "actuator_gainprm", "pair_friction", "pair_solref",
-            "pair_solimp", "pair_margin", "pair_gap",
+            "pair_solimp", "pair_margin", "pair_gap", "site_pos",
         ):
             setattr(self, name, _np(getattr(model, name)))
 
 
-def _fk_chain(bk, model, mc, sub_mask, qpos):
-    """FK + com geometry for hinge/slide trees: every position-dependent
-    quantity the downstream stages read (xanchor/xaxis captured during the
-    walk, before each joint's own transform, as mj_kinematics does)."""
+def _fk_chain(bk, model, mc, sub_mask, qpos, com: bool = True):
+    """FK + com geometry for hinge/slide/free trees: every
+    position-dependent quantity the downstream stages and the env hooks
+    read (xanchor/xaxis captured during the walk, before each joint's own
+    transform, as mj_kinematics does).  ``com=False`` stops after the body
+    frames: no subtree coms and no cdof."""
     nbody, nv = model.nbody, model.nv
     xpos = [(0.0, 0.0, 0.0)] * nbody
     xquat = [(1.0, 0.0, 0.0, 0.0)] * nbody
@@ -508,7 +525,19 @@ def _fk_chain(bk, model, mc, sub_mask, qpos):
         p = model.body_parentid[b]
         pos = vadd3(xpos[p], qrot(xquat[p], tuple(mc.body_pos[b])))
         quat = qmul(xquat[p], tuple(mc.body_quat[b]))
-        for j in smooth.body_joints(model, b):
+        jids = smooth.body_joints(model, b)
+        if len(jids) == 1 and model.jnt_type[jids[0]] == JointType.FREE:
+            # the body frame is the joint's coordinates: world position and
+            # the (normalized) quaternion
+            j = jids[0]
+            qadr = model.jnt_qposadr[j]
+            pos = (qpos[qadr], qpos[qadr + 1], qpos[qadr + 2])
+            quat = qnormalize(bk, tuple(qpos[qadr + 3 + i] for i in range(4)))
+            xanchor[j] = pos
+            # MuJoCo keeps the free joint's axis unrotated (global z)
+            xaxis[j] = tuple(float(x) for x in mc.jnt_axis[j])
+            jids = []
+        for j in jids:
             jt = model.jnt_type[j]
             qadr = model.jnt_qposadr[j]
             axis_local = mc.jnt_axis[j]
@@ -532,6 +561,8 @@ def _fk_chain(bk, model, mc, sub_mask, qpos):
         vadd3(xpos[b], mat_vec(xmat[b], tuple(mc.body_ipos[b])))
         for b in range(nbody)
     ]
+    if not com:
+        return dict(xpos=xpos, xquat=xquat, xmat=xmat, xipos=xipos)
 
     # subtree_com of each root's tree (constant masses: python weights)
     subtree_com = [None] * nbody
@@ -554,7 +585,18 @@ def _fk_chain(bk, model, mc, sub_mask, qpos):
         vadr = model.jnt_dofadr[j]
         b = model.jnt_bodyid[j]
         com = subtree_com[model.body_rootid[b]]
-        if model.jnt_type[j] == JointType.SLIDE:
+        if model.jnt_type[j] == JointType.FREE:
+            # 3 world-aligned translations (constant cdof) + 3 rotations
+            # about the body-frame axes, anchored at the body origin
+            for i in range(3):
+                e = [0.0, 0.0, 0.0]
+                e[i] = 1.0
+                cdof[vadr + i] = ((0.0, 0.0, 0.0), tuple(e))
+            off = vsub3(com, xpos[b])
+            for i in range(3):
+                col = mat_col(xmat[b], i)
+                cdof[vadr + 3 + i] = (col, cross3(col, off))
+        elif model.jnt_type[j] == JointType.SLIDE:
             cdof[vadr] = ((0.0, 0.0, 0.0), xaxis[j])
         else:
             off = vsub3(com, xanchor[j])
@@ -728,8 +770,18 @@ def build_step(model: Model, bk):
             v = cvel[p]
             for j in smooth.body_joints(model, b):
                 adr = model.jnt_dofadr[j]
-                cdof_dot[adr] = motion_cross(v, cdof[adr])
-                v = vel_add(v, adr)
+                if model.jnt_type[j] == JointType.FREE:
+                    # translation dofs: constant cdof -> cdof_dot = 0
+                    for i in range(adr, adr + 3):
+                        v = vel_add(v, i)
+                    # rotation dofs: cdof_dot = v_after_translation x cdof
+                    for i in range(adr + 3, adr + 6):
+                        cdof_dot[i] = motion_cross(v, cdof[i])
+                    for i in range(adr + 3, adr + 6):
+                        v = vel_add(v, i)
+                else:
+                    cdof_dot[adr] = motion_cross(v, cdof[adr])
+                    v = vel_add(v, adr)
             cvel[b] = v
 
         # rne (bias forces)
@@ -776,15 +828,34 @@ def build_step(model: Model, bk):
 
         # ----------------- passive + actuation -----------------
         qfrc_passive = []
+        free_springs = {}  # jnt id -> (3,) rotational spring displacement
         for i in range(nv):
             j = model.dof_jntid[i]
             qadr = model.jnt_qposadr[j]
             stiff = float(mc.jnt_stiffness[j])
             spring = 0.0
-            if stiff:
+            if stiff and model.jnt_type[j] != JointType.FREE:
                 spring = mul(
                     -stiff, sub(qpos[qadr], float(mc.qpos_spring[qadr]))
                 )
+            elif stiff:
+                # translation dofs: linear spring to qpos_spring[:3];
+                # rotation dofs: quaternion spring (mju_subQuat)
+                k_ = i - model.jnt_dofadr[j]
+                if k_ < 3:
+                    spring = mul(
+                        -stiff,
+                        sub(qpos[qadr + k_], float(mc.qpos_spring[qadr + k_])),
+                    )
+                else:
+                    if j not in free_springs:
+                        free_springs[j] = quat_sub_scalar(
+                            bk,
+                            tuple(qpos[qadr + 3 + k] for k in range(4)),
+                            tuple(float(mc.qpos_spring[qadr + 3 + k])
+                                  for k in range(4)),
+                        )
+                    spring = mul(-stiff, free_springs[j][k_ - 3])
             damp = mul(-float(mc.dof_damping[i]), qvel[i])
             qfrc_passive.append(add(spring, damp))
 
@@ -832,27 +903,105 @@ def build_step(model: Model, bk):
         return dict(qacc=qacc, qfrc_smooth=qfrc_smooth,
                     qfrc_constraint=qfrc_constraint, m_mat=m_mat)
 
-    def step(qpos, qvel, act, warmstart, ctrl):
-        fw = forward_pass(list(qpos), list(qvel), list(warmstart),
-                          list(ctrl))
-        # semi-implicit Euler with implicit joint damping (mj_Euler)
-        if model.any_damping and not model.opt.disable_eulerdamp:
-            damp = [h * float(mc.dof_damping[i]) for i in range(nv)]
-            l_mhb = chol_factor(fw["m_mat"], extra_diag=damp)
-            qfrc_tot = [
-                add(fw["qfrc_smooth"][i], fw["qfrc_constraint"][i])
-                for i in range(nv)
-            ]
-            dv = chol_solve(l_mhb, qfrc_tot)
-            qvel_new = [add(qvel[i], mul(h, dv[i])) for i in range(nv)]
-        else:
-            qvel_new = [add(qvel[i], mul(h, fw["qacc"][i]))
-                        for i in range(nv)]
-        # hinge/slide only: mj_integratePos is the plain vector update
-        qpos_new = [add(qpos[i], mul(h, qvel_new[i])) for i in range(nq)]
-        return qpos_new, qvel_new, list(act), list(fw["qacc"])
+    def integrate_pos_sg(qpos, qvel_new, dt):
+        """mj_integratePos in scalar form (manifold update for quats)."""
+        if nq == nv:  # scalar joints only: plain vector update
+            return [add(qpos[i], mul(dt, qvel_new[i])) for i in range(nq)]
+        qpos_new = list(qpos)
+        for j in range(model.njnt):
+            qadr = model.jnt_qposadr[j]
+            vadr = model.jnt_dofadr[j]
+            if model.jnt_type[j] in (JointType.HINGE, JointType.SLIDE):
+                qpos_new[qadr] = add(qpos[qadr], mul(dt, qvel_new[vadr]))
+                continue
+            # free: world-frame translation + local angular velocity
+            for i in range(3):
+                qpos_new[qadr + i] = add(
+                    qpos[qadr + i], mul(dt, qvel_new[vadr + i])
+                )
+            q = quat_integrate_scalar(
+                bk, tuple(qpos[qadr + 3 + i] for i in range(4)),
+                tuple(qvel_new[vadr + 3 + i] for i in range(3)), dt,
+            )
+            for i in range(4):
+                qpos_new[qadr + 3 + i] = q[i]
+        return qpos_new
+
+    if model.opt.integrator == Integrator.EULER:
+
+        def step(qpos, qvel, act, warmstart, ctrl):
+            fw = forward_pass(list(qpos), list(qvel), list(warmstart),
+                              list(ctrl))
+            # semi-implicit Euler with implicit joint damping (mj_Euler)
+            if model.any_damping and not model.opt.disable_eulerdamp:
+                damp = [h * float(mc.dof_damping[i]) for i in range(nv)]
+                l_mhb = chol_factor(fw["m_mat"], extra_diag=damp)
+                qfrc_tot = [
+                    add(fw["qfrc_smooth"][i], fw["qfrc_constraint"][i])
+                    for i in range(nv)
+                ]
+                dv = chol_solve(l_mhb, qfrc_tot)
+                qvel_new = [add(qvel[i], mul(h, dv[i])) for i in range(nv)]
+            else:
+                qvel_new = [add(qvel[i], mul(h, fw["qacc"][i]))
+                            for i in range(nv)]
+            qpos_new = integrate_pos_sg(qpos, qvel_new, h)
+            return qpos_new, qvel_new, list(act), list(fw["qacc"])
+
+    else:  # RK4 (mj_RungeKutta, N=4): 4 chained forward passes
+
+        def step(qpos, qvel, act, warmstart, ctrl):
+            qpos, qvel, ctrl = list(qpos), list(qvel), list(ctrl)
+            fw = forward_pass(qpos, qvel, list(warmstart), ctrl)
+            vels = [qvel]
+            accs = [fw["qacc"]]
+            A = ((0.5, 0.0, 0.0), (0.0, 0.5, 0.0), (0.0, 0.0, 1.0))
+            B = (1.0 / 6.0, 1.0 / 3.0, 1.0 / 3.0, 1.0 / 6.0)
+            for i in range(3):
+                dq = [sum_scalars([mul(A[i][j], vels[j][k])
+                                   for j in range(i + 1)])
+                      for k in range(nv)]
+                dv = [sum_scalars([mul(A[i][j], accs[j][k])
+                                   for j in range(i + 1)])
+                      for k in range(nv)]
+                qpos_i = integrate_pos_sg(qpos, dq, h)
+                qvel_i = [add(qvel[k], mul(h, dv[k])) for k in range(nv)]
+                # each stage warm-starts from the previous stage's qacc
+                fw = forward_pass(qpos_i, qvel_i, list(fw["qacc"]), ctrl)
+                vels.append(qvel_i)
+                accs.append(fw["qacc"])
+            dq = [sum_scalars([mul(B[j], vels[j][k]) for j in range(4)])
+                  for k in range(nv)]
+            dv = [sum_scalars([mul(B[j], accs[j][k]) for j in range(4)])
+                  for k in range(nv)]
+            qpos_new = integrate_pos_sg(qpos, dq, h)
+            qvel_new = [add(qvel[k], mul(h, dv[k])) for k in range(nv)]
+            return qpos_new, qvel_new, list(act), list(fw["qacc"])
 
     return step
+
+
+def build_fk(model: Model, bk):
+    """Scalar-graph forward kinematics for the env hooks: the same
+    ``_fk_chain`` the step computes, so frame-based rewards and
+    observations read the step's own body frames.
+
+    Returns ``fk(qpos) -> dict`` with ``xpos[b]``, ``xquat[b]``,
+    ``xmat[b]`` (row-major 3x3), ``xipos[b]`` and ``site_xpos[s]`` as
+    tuples of backend values.
+    """
+    mc = _ModelConsts(model)
+
+    def fk(qpos):
+        out = _fk_chain(bk, model, mc, None, list(qpos), com=False)
+        out["site_xpos"] = [
+            vadd3(out["xpos"][b], mat_vec(out["xmat"][b],
+                                          tuple(mc.site_pos[s])))
+            for s, b in enumerate(model.site_bodyid)
+        ]
+        return out
+
+    return fk
 
 
 # ---------------------------------------------------------------------------
@@ -901,6 +1050,8 @@ def _assemble_rows(bk, model, mc, qpos, qvel, xpos, xmat, subtree_com, cdof,
     for j in range(model.njnt):
         if model.opt.disable_limit or not model.jnt_limited[j]:
             continue
+        if model.jnt_type[j] not in (JointType.HINGE, JointType.SLIDE):
+            continue  # free joints cannot be limited
         qadr = model.jnt_qposadr[j]
         vadr = model.jnt_dofadr[j]
         lo, hi = (float(x) for x in mc.jnt_range[j])

@@ -1,7 +1,8 @@
-"""Control suite: dm_control-style tasks, ported slice by slice.
+"""Control suite: dm_control-style tasks over the port's engine.
 
-This slice has cheetah run; the rest of the reference's suite is ROADMAP
-Queue A item 9.  Usage::
+The reference's whole suite (BASELINE.json's config ladder): pendulum
+swingup, cartpole balance/swingup, cheetah run, walker stand/walk/run and
+humanoid stand/walk/run.  Usage::
 
     benv = suite.load_batched("cheetah", "run", 4096)   # on cuda
 """
@@ -12,17 +13,20 @@ import numpy as np
 import torch
 
 from ..api.environment import BatchedEnvironment
-from . import cheetah
+from . import cartpole, cheetah, humanoid, pendulum, walker
 from .common import asset_path, load_asset
 
 _REGISTRY = {
+    ("pendulum", "swingup"): pendulum.swingup,
+    ("cartpole", "balance"): cartpole.balance,
+    ("cartpole", "swingup"): cartpole.swingup,
     ("cheetah", "run"): cheetah.run,
-}
-# the reference's other tasks, each waiting for its ROADMAP row
-_LATER = {
-    ("pendulum", "swingup"), ("cartpole", "balance"), ("cartpole", "swingup"),
-    ("walker", "stand"), ("walker", "walk"), ("walker", "run"),
-    ("humanoid", "stand"), ("humanoid", "walk"), ("humanoid", "run"),
+    ("walker", "stand"): walker.stand,
+    ("walker", "walk"): walker.walk,
+    ("walker", "run"): walker.run,
+    ("humanoid", "stand"): humanoid.stand,
+    ("humanoid", "walk"): humanoid.walk,
+    ("humanoid", "run"): humanoid.run,
 }
 
 ALL_TASKS = tuple(sorted(_REGISTRY))
@@ -32,10 +36,6 @@ def load_batched(domain: str, task: str, num_envs: int, dtype=np.float32,
                  device=None, **kwargs) -> BatchedEnvironment:
     """Build a lockstep BatchedEnvironment on ``device`` (None: the
     current CUDA device; raises without one)."""
-    if (domain, task) in _LATER:
-        raise NotImplementedError(
-            f"{domain}/{task} is not ported yet: ROADMAP Queue A item 9 "
-            f"(the rest of the suite); available: {ALL_TASKS}")
     try:
         factory = _REGISTRY[(domain, task)]
     except KeyError:

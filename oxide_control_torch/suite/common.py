@@ -6,10 +6,11 @@ import functools
 import os
 
 import numpy as np
+import torch
 
 from ..api.errors import UnsupportedFeatureError
 from ..mjcf.compile import load_model
-from ..model import Model
+from ..model import JointType, Model
 
 ASSET_DIR = os.path.join(os.path.dirname(__file__), "assets")
 
@@ -27,8 +28,43 @@ def load_asset(name: str, dtype=np.float64) -> Model:
 def asset_path(name: str) -> str:
     path = os.path.join(ASSET_DIR, f"{name}.xml")
     if not os.path.exists(path):
+        have = sorted(f[:-4] for f in os.listdir(ASSET_DIR)
+                      if f.endswith(".xml"))
         raise UnsupportedFeatureError(
-            f"suite asset {name!r} is not ported yet (ROADMAP Queue A item "
-            f"9: the rest of the suite); available: cheetah"
-        )
+            f"no suite asset {name!r}; available: {', '.join(have)}")
     return path
+
+
+def uniform(generator: torch.Generator, lo: float, hi: float, shape,
+            dtype: torch.dtype, device) -> torch.Tensor:
+    """U(lo, hi) of ``shape`` drawn from ``generator``."""
+    u = torch.empty(shape, dtype=dtype, device=device)
+    u.uniform_(0.0, 1.0, generator=generator)
+    return lo + (hi - lo) * u
+
+
+def normal(generator: torch.Generator, shape, dtype: torch.dtype,
+           device) -> torch.Tensor:
+    """Standard normals of ``shape`` drawn from ``generator``."""
+    z = torch.empty(shape, dtype=dtype, device=device)
+    return z.normal_(generator=generator)
+
+
+def randomize_limited_joints(model: Model, qpos: torch.Tensor,
+                             generator: torch.Generator,
+                             fraction: float = 1.0) -> torch.Tensor:
+    """Batched ``qpos (B, nq)`` with every limited hinge/slide joint drawn
+    uniformly within ``fraction`` of its range around the range's
+    midpoint (dm_control's randomize_limited_and_rotational_joints idiom
+    for limited scalar joints)."""
+    qpos = qpos.clone()
+    for j in range(model.njnt):
+        if not model.jnt_limited[j] or model.jnt_type[j] not in (
+                JointType.HINGE, JointType.SLIDE):
+            continue
+        adr = model.jnt_qposadr[j]
+        lo, hi = (float(x) for x in np.asarray(model.jnt_range)[j])
+        half = 0.5 * (hi - lo) * fraction
+        qpos[:, adr] = 0.5 * (lo + hi) + uniform(
+            generator, -half, half, qpos.shape[:1], qpos.dtype, qpos.device)
+    return qpos

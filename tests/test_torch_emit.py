@@ -2,7 +2,9 @@
 
 The emitted model header -- the same source the card compiles -- is built
 here by g++ in double and held against the torch backend (the plain
-version); its float form is checked for stray double literals and for the
+version): the Euler step (hopper, cheetah), the RK4 step (cartpole), the
+free joint (the sphere) and walker's reward, which reads the FK.  Its
+float form is checked for stray double literals and for the
 Newton/line-search loops that keep it small.
 """
 
@@ -16,11 +18,13 @@ import pytest
 import torch
 
 from test_megakernel import _XML as HOPPER_XML
+from test_torch_scalar_graph import FREE_SPHERE, SPINS
 
 from oxide_control_torch.mjcf.compile import load_model_from_xml
+from oxide_control_torch import suite
 from oxide_control_torch.ops import megakernel as mk
 from oxide_control_torch.ops import scalar_graph as sg
-from oxide_control_torch.ops.emit import Emitter
+from oxide_control_torch.ops.emit import PRELUDE, Emitter
 from oxide_control_torch.suite.common import load_asset
 
 B = 8
@@ -29,10 +33,15 @@ B = 8
 def _model(name):
     if name == "hopper":
         return load_model_from_xml(HOPPER_XML)
+    if name == "free_sphere":
+        return load_model_from_xml(FREE_SPHERE.format(stiffness=0.0))
     return load_asset(name)
 
 
 def _inputs(m, seed):
+    if m.nq == 7:  # the free sphere, B = 2 spins
+        return (np.tile(np.asarray(m.qpos0), (len(SPINS), 1)), SPINS,
+                np.zeros(SPINS.shape), np.zeros((len(SPINS), 0)))
     rng = np.random.default_rng(seed)
     qpos = np.tile(np.asarray(m.qpos0), (B, 1)) + rng.uniform(
         -0.1, 0.1, (B, m.nq))
@@ -73,6 +82,10 @@ extern "C" void step_batch(const double* q, const double* v, const double* w,
              qo + b * OXC_NQ, vo + b * OXC_NV, wo + b * OXC_NV);
 }
 """
+    return _gxx(src, tmp_path)
+
+
+def _gxx(src, tmp_path):
     cpp = tmp_path / "body.cpp"
     so = tmp_path / "body.so"
     cpp.write_text(src)
@@ -83,14 +96,17 @@ extern "C" void step_batch(const double* q, const double* v, const double* w,
     return ctypes.CDLL(str(so)), time.perf_counter() - t0
 
 
-@pytest.mark.parametrize("name,nsteps", [("hopper", 10), ("cheetah", 5)])
+@pytest.mark.parametrize("name,nsteps", [
+    ("hopper", 10), ("cheetah", 5), ("cartpole", 10), ("free_sphere", 10),
+])
 def test_emitted_body_matches_torch_backend(name, nsteps, tmp_path):
     """g++ -O1 builds the cheetah body in about 4 s on this class of CPU,
-    so both models run through it."""
+    so the models run through it."""
     m = _model(name)
     lib, _ = _gxx_step(m, tmp_path)
     qpos, qvel, ws, ctrl = _inputs(m, seed=1)
-    step = sg.build_step(m, sg.TorchBackend(B, torch.float64, "cpu"))
+    b = len(qpos)
+    step = sg.build_step(m, sg.TorchBackend(b, torch.float64, "cpu"))
     q, v, w, c = _cols(qpos), _cols(qvel), _cols(ws), _cols(ctrl)
     cq, cv, cw, cc = (np.ascontiguousarray(a) for a in (qpos, qvel, ws, ctrl))
     ptr = lambda a: a.ctypes.data_as(ctypes.c_void_p)
@@ -98,11 +114,45 @@ def test_emitted_body_matches_torch_backend(name, nsteps, tmp_path):
         q, v, _, w = step(q, v, [], w, c)
         qo, vo, wo = np.zeros_like(cq), np.zeros_like(cv), np.zeros_like(cw)
         lib.step_batch(ptr(cq), ptr(cv), ptr(cw), ptr(cc), ptr(qo), ptr(vo),
-                       ptr(wo), ctypes.c_int(B))
+                       ptr(wo), ctypes.c_int(b))
         cq, cv, cw = qo, vo, wo
         np.testing.assert_allclose(cq, _stack(q), rtol=0, atol=1e-9)
         np.testing.assert_allclose(cv, _stack(v), rtol=0, atol=1e-9)
         np.testing.assert_allclose(cw, _stack(w), rtol=0, atol=1e-9)
+
+
+def test_emitted_fk_reward_matches_torch_backend(tmp_path):
+    """walker-walk's reward, which reads the torso frame from build_fk:
+    the emitted C in double against the torch backend."""
+    benv = suite.load_batched("walker", "walk", B, dtype=np.float64,
+                              device="cpu")
+    m, hooks = benv.model, benv.task.kernel_hooks(benv.model)
+    em = Emitter("double")
+    q, v, c = em.load("q", m.nq), em.load("v", m.nv), em.load("c", m.nu)
+    em.ret(mk.bind_hooks(m, hooks, em)[1](q, v, c))
+    src = PRELUDE + em.function(
+        "double reward(const double* q, const double* v, const double* c)")
+    src += r"""
+extern "C" void reward_batch(const double* q, const double* v,
+                             const double* c, double* r, int n) {
+  for (int b = 0; b < n; ++b)
+    r[b] = reward(q + b * %d, v + b * %d, c + b * %d);
+}
+""" % (m.nq, m.nv, m.nu)
+    lib, _ = _gxx(src, tmp_path)
+    rng = np.random.default_rng(2)
+    qpos = np.asarray(m.qpos0) + rng.uniform(-0.5, 0.5, (B, m.nq))
+    qvel = rng.uniform(-3.0, 3.0, (B, m.nv))
+    ctrl = rng.uniform(-1.0, 1.0, (B, m.nu))
+    bk = sg.TorchBackend(B, torch.float64, "cpu")
+    want = bk.full(mk.bind_hooks(m, hooks, bk)[1](
+        _cols(qpos), _cols(qvel), _cols(ctrl))).numpy()
+    got = np.zeros(B)
+    ptr = lambda a: np.ascontiguousarray(a).ctypes.data_as(ctypes.c_void_p)
+    lib.reward_batch(ptr(qpos), ptr(qvel), ptr(ctrl), ptr(got),
+                     ctypes.c_int(B))
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-9)
+    assert want.std() > 0.0
 
 
 def test_float_source_has_no_double_literal():

@@ -61,14 +61,16 @@ def test_hopper_model_matches_reference(dtype):
 
 
 def test_port_asset_is_the_reference_asset():
-    port = suite.asset_path("cheetah")
-    with open(port) as a, open(ref_asset_path("cheetah")) as b:
-        assert a.read() == b.read()
+    for name in ("cheetah", "walker", "humanoid", "cartpole", "pendulum"):
+        with open(suite.asset_path(name)) as a, \
+                open(ref_asset_path(name)) as b:
+            assert a.read() == b.read(), name
 
 
 def test_import_leaves_jax_out():
     code = (
         "import sys, oxide_control_torch, oxide_control_torch.suite, "
+        "oxide_control_torch.suite.rewards, "
         "oxide_control_torch.parallel.rollout, oxide_control_torch.convert, "
         "oxide_control_torch.ops.emit, oxide_control_torch.ops.build\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
@@ -94,19 +96,50 @@ def test_default_device_raises_without_cuda(monkeypatch):
     assert oxide_control_torch.default_device("cpu") == torch.device("cpu")
 
 
+_BALL = """
+<mujoco>
+  <worldbody>
+    <body name="link" pos="0 0 1">
+      <joint type="ball"/>
+      <geom type="capsule" size="0.05" fromto="0 0 0 0 0 -0.5"/>
+    </body>
+  </worldbody>
+</mujoco>
+"""
+_FREE_MOTOR = """
+<mujoco>
+  <worldbody>
+    <body name="ball" pos="0 0 1">
+      <joint name="root" type="free"/>
+      <geom type="sphere" size="0.1"/>
+    </body>
+  </worldbody>
+  <actuator><motor joint="root" gear="1 0 0 0 0 0"/></actuator>
+</mujoco>
+"""
+_IMPLICIT = HOPPER_XML.replace('<option timestep="0.01"',
+                               '<option integrator="implicit" '
+                               'timestep="0.01"')
+
+
 @pytest.mark.parametrize("name,row", [
-    ("humanoid", "Queue A item 9"), ("cartpole", "Queue A item 9"),
+    ("ball", "Queue A item 10"), ("free_motor", "Queue A item 10.1"),
+    ("implicit", "Queue A item 11"),
 ])
 def test_unsupported_models_name_their_roadmap_row(name, row):
-    reason = sg.unsupported_reason(load_model(ref_asset_path(name)))
+    xml = dict(ball=_BALL, free_motor=_FREE_MOTOR, implicit=_IMPLICIT)[name]
+    reason = sg.unsupported_reason(load_model_from_xml(xml))
     assert reason is not None and row in reason
 
 
 def test_supported_models():
-    assert sg.supports(load_model(ref_asset_path("cheetah")))
+    for name in ("cheetah", "walker", "humanoid", "cartpole", "pendulum"):
+        assert sg.supports(load_model(ref_asset_path(name))), name
     assert sg.supports(load_model_from_xml(HOPPER_XML))
 
 
 def test_unported_tasks_raise():
-    with pytest.raises(NotImplementedError, match="Queue A item 9"):
-        suite.load_batched("walker", "walk", 8, device="cpu")
+    """Every task of the reference's suite is ported; a name outside it
+    is refused with the list of tasks."""
+    with pytest.raises(ValueError, match="available"):
+        suite.load_batched("acrobot", "swingup", 8, device="cpu")

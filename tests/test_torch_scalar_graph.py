@@ -2,7 +2,15 @@
 
 The torch backend (the kernel's plain version) against the reference
 ``build_step`` run eagerly, in f64, and the quaternion helpers against the
-reference's; the emitted C is checked in test_torch_emit.py.
+reference's; the emitted C is checked in test_torch_emit.py and the
+humanoid in test_torch_humanoid.py.
+
+The bar is 1e-8 on q, v and the warmstart.  The reference's line search
+is a fixed doubling + bisection grid, so a Newton step whose root sits
+exactly on a grid point (alpha = 1 after a converged step) is decided by
+the last bit of ``dphi``: there a 1e-15 difference moves qacc by
+2^-25 |p| (ROADMAP Queue C).  The walker's inputs are a seed whose five
+steps meet no such tie.
 """
 
 import jax.numpy as jnp
@@ -22,21 +30,49 @@ from oxide_control_torch.ops import scalar_graph as sg
 from oxide_control_torch.suite.common import load_asset
 
 B = 8
+# the free sphere of tests/test_megakernel.py::test_free_joint_megakernel_
+# interpret (it falls into contact within the 10 steps); the sprung variant
+# exercises the free joint's linear and quaternion springs
+FREE_SPHERE = """
+<mujoco>
+  <option timestep="0.01" solver="Newton" iterations="4" tolerance="0"/>
+  <worldbody>
+    <geom name="floor" type="plane" size="3 3 .1"/>
+    <body name="ball" pos="0 0 0.12">
+      <joint type="free" stiffness="{stiffness}"/>
+      <geom name="b" type="sphere" size="0.1" mass="0.5"/>
+    </body>
+  </worldbody>
+</mujoco>
+"""
+SPINS = np.array([[0.2, 0.0, -0.3, 2.0, 1.0, 0.5],
+                  [-0.1, 0.15, 0.1, -1.0, 3.0, -2.0]])
+# bring feet (cheetah: rootz) / the ball (hopper: z) into contact range
+CONTACT_SHIFT = {"cheetah": 1, "hopper": 0}
+SEEDS = {"walker": 6}
 
 
 def _models(name):
     if name == "hopper":
         return (load_model_from_xml(HOPPER_XML),
                 ref_load_model_from_xml(HOPPER_XML))
+    if name.startswith("free_sphere"):
+        xml = FREE_SPHERE.format(stiffness=2.0 if "spring" in name else 0.0)
+        return load_model_from_xml(xml), ref_load_model_from_xml(xml)
     return load_asset(name), ref_load_asset(name)
 
 
-def _inputs(m, seed):
-    rng = np.random.default_rng(seed)
+def _inputs(name, m, seed):
+    """(qpos, qvel, ws, ctrl), each (batch, n)."""
+    if name.startswith("free_sphere"):
+        b = len(SPINS)
+        return (np.tile(np.asarray(m.qpos0), (b, 1)), SPINS,
+                np.zeros((b, m.nv)), np.zeros((b, m.nu)))
+    rng = np.random.default_rng(SEEDS.get(name, seed))
     qpos = np.tile(np.asarray(m.qpos0), (B, 1)) + rng.uniform(
         -0.1, 0.1, (B, m.nq))
-    # bring feet (cheetah: rootz) / the ball (hopper: z) into contact range
-    qpos[:, 1 if m.nq == 9 else 0] -= 0.3
+    if name in CONTACT_SHIFT:
+        qpos[:, CONTACT_SHIFT[name]] -= 0.3
     qvel = rng.uniform(-1, 1, (B, m.nv))
     ctrl = rng.uniform(-1, 1, (B, m.nu))
     ws = np.zeros((B, m.nv))
@@ -51,17 +87,24 @@ def _stack(xs):
     return np.stack([np.asarray(x) for x in xs], axis=1)
 
 
-@pytest.mark.parametrize("name,nsteps", [("cheetah", 5), ("hopper", 10)])
+@pytest.mark.parametrize("name,nsteps", [
+    ("cheetah", 5), ("hopper", 10), ("walker", 5), ("cartpole", 10),
+    ("pendulum", 10), ("free_sphere", 10), ("free_sphere_spring", 10),
+])
 def test_torch_backend_matches_reference_step(name, nsteps):
+    """Euler (cheetah, hopper, walker), RK4 (cartpole, pendulum) and the
+    free joint (the sphere: quaternion FK, free cdof and velocity stage,
+    manifold integration, springs)."""
     m, mr = _models(name)
-    qpos, qvel, ws, ctrl = _inputs(m, seed=0)
-    step = sg.build_step(m, sg.TorchBackend(B, torch.float64, "cpu"))
+    qpos, qvel, ws, ctrl = _inputs(name, m, seed=0)
+    b = len(qpos)
+    step = sg.build_step(m, sg.TorchBackend(b, torch.float64, "cpu"))
     step_ref = rsg.build_step(mr)
     T = lambda a: _cols(a, torch.tensor)
     J = lambda a: _cols(a, jnp.asarray)
     q, v, w, c = T(qpos), T(qvel), T(ws), T(ctrl)
     qr, vr, wr, cr = J(qpos), J(qvel), J(ws), J(ctrl)
-    ar = [jnp.zeros(B) for _ in range(mr.na)]
+    ar = [jnp.zeros(b) for _ in range(mr.na)]
     for _ in range(nsteps):
         q, v, _, w = step(q, v, [], w, c)
         qr, vr, ar, wr = step_ref(qr, vr, ar, wr, cr)
