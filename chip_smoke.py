@@ -1,12 +1,14 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: ``python3 chip_smoke.py``.
 
 Drives the port's main path -- ``FastRollout`` through the hand-written
-CUDA rollout kernel on six rows of the reference bench: cheetah-run@4096
+CUDA rollout kernel on seven rows of the reference bench: cheetah-run@4096
 and walker-walk@4096 (K = 200), cartpole-swingup@1024 (K = 200, RK4),
-humanoid-run@8192 (K = 100, free root joint) with uniform ctrl, and the
-in-kernel (64, 64) policy collecting trajectories on cheetah (K = 200)
-and humanoid (K = 100) -- after building every kernel from the sources in
-this checkout and holding each against its plain PyTorch version.
+arm-muscle-wrap@4096 (K = 200: a muscle on a spatial tendon wrapping a
+sphere, ``oxide_control_torch.bench_configs``), humanoid-run@8192 (K = 100,
+free root joint) with uniform ctrl, and the in-kernel (64, 64) policy
+collecting trajectories on cheetah (K = 200) and humanoid (K = 100) --
+after building every kernel from the sources in this checkout and holding
+each against its plain PyTorch version.
 Phases, each fatal on failure:
 
 1. device: the card's name and power limit;
@@ -18,16 +20,19 @@ Phases, each fatal on failure:
    nvcc works;
 5. parity: the kernel on the same inputs, through resets, against the
    plain version's outputs (bars below; every output is expected to be
-   bit-identical), and each main-path row's kernel timed on its own parity
-   inputs, plus the FMA-contracted cheetah build (the price of bit-exact
-   parity);
+   bit-identical, and a mode that is not fails), and each main-path row's
+   kernel timed on its own parity inputs, plus the FMA-contracted cheetah
+   build (the price of bit-exact parity);
 6. main path: 1 warm-up + 10 timed calls of each row (CUDA events), with
    the kernel's launch count set to 0 before and read after those calls;
 7. the kernels line (JSON) and the last line (JSON).
 
-Parity runs each main-path row at its own B and K, pendulum-swingup
-(which has no bench row) at B = 1024, K = 200, and the two options off
-the main path (exploration noise, Gaussian reset noise) at K = 24.
+Parity runs each main-path row at its own B and K; three models without a
+bench row at K = 200: pendulum-swingup@1024, walker-walk-tendon@4096
+(walker with a fixed knee tendon carrying friction loss) and
+stateful-actuators@1024 (filter, filterexact and integrator actuators);
+and the two options off the main path (exploration noise, Gaussian reset
+noise) at K = 24.
 
 Needs one CUDA card; exits non-zero without one.
 """
@@ -40,22 +45,89 @@ import subprocess
 import time
 from concurrent.futures import ThreadPoolExecutor
 
+import numpy as np
 import torch
 
-from oxide_control_torch import suite
+from oxide_control_torch import bench_configs, suite
+from oxide_control_torch.api.environment import BatchedEnvironment
+from oxide_control_torch.mjcf.compile import load_model_from_xml
 from oxide_control_torch.ops import megakernel as mk
 from oxide_control_torch.parallel.rollout import FastRollout
 from oxide_control_torch.policy import MLPPolicy
+from oxide_control_torch.suite import walker
+from oxide_control_torch.suite.common import asset_path
 
-# the tasks and their batches (the reference bench's, bench.py:67-98)
-BATCH = {"cheetah/run": 4096, "walker/walk": 4096, "cartpole/swingup": 1024,
-         "pendulum/swingup": 1024, "humanoid/run": 8192}
+# two parity models without a bench row.  Filter, filterexact
+# (act-limited) and integrator actuators on a two-link arm over a floor
+# (tests/test_scalar_graph.py:184-205), run with the bench task:
+STATEFUL_XML = """
+    <mujoco>
+      <option solver="Newton" iterations="4" tolerance="0"/>
+      <worldbody>
+        <geom name="floor" type="plane" size="5 5 .1"/>
+        <body pos="0 0 0.5">
+          <joint name="h1" type="hinge" axis="0 1 0"/>
+          <geom type="capsule" fromto="0 0 0 0.3 0 0" size="0.04" mass="1"/>
+          <body pos="0.3 0 0">
+            <joint name="h2" type="hinge" axis="0 1 0" damping="0.2"/>
+            <geom name="tip" type="sphere" size="0.05" mass="0.3"/>
+          </body>
+        </body>
+      </worldbody>
+      <actuator>
+        <general joint="h1" dyntype="filter" dynprm="0.1" gainprm="4"/>
+        <general joint="h2" dyntype="filterexact" dynprm="0.05" gainprm="2"
+                 actrange="-0.5 0.5" actlimited="true"/>
+        <general joint="h2" dyntype="integrator" gainprm="1"/>
+      </actuator>
+    </mujoco>
+    """
+# and walker-walk with bench.py:441-446's knee coupler, a fixed tendon with
+# friction loss (the bench row's sensors are left out: they wait for
+# in-kernel sensors, ROADMAP Queue A item 10.7)
+WALKER_TENDON = """
+  <tendon>
+    <fixed name="knee_coupler" frictionloss="0.05">
+      <joint joint="left_knee" coef="0.5"/>
+      <joint joint="right_knee" coef="-0.5"/>
+    </fixed>
+  </tendon>
+</mujoco>"""
+
+
+def walker_tendon_env(batch, device=None):
+    with open(asset_path("walker")) as f:
+        xml = f.read().replace("</mujoco>", WALKER_TENDON)
+    model, task = walker.walk(model=load_model_from_xml(xml, np.float32))
+    return BatchedEnvironment(model, task, batch, device=device)
+
+
+def stateful_env(batch, device=None):
+    return BatchedEnvironment(load_model_from_xml(STATEFUL_XML, np.float32),
+                              bench_configs.BenchTask(), batch, device=device)
+
+
+# the environments at their batches (the reference bench's, bench.py:67-98)
+ENVS = {
+    "cheetah/run": lambda: suite.load_batched("cheetah", "run", 4096),
+    "walker/walk": lambda: suite.load_batched("walker", "walk", 4096),
+    "cartpole/swingup": lambda: suite.load_batched("cartpole", "swingup",
+                                                   1024),
+    "pendulum/swingup": lambda: suite.load_batched("pendulum", "swingup",
+                                                   1024),
+    "humanoid/run": lambda: suite.load_batched("humanoid", "run", 8192),
+    "arm/muscle-wrap": lambda: bench_configs.load_config("arm", "muscle-wrap",
+                                                         4096),
+    "walker/walk-tendon": lambda: walker_tendon_env(4096),
+    "stateful/actuators": lambda: stateful_env(1024),
+}
 # the main path's rows: (name, task, K, in-kernel policy + collection)
 ROWS = (
     ("cheetah-run@4096", "cheetah/run", 200, False),
     ("run-policy-obs@4096", "cheetah/run", 200, True),
     ("walker-walk@4096", "walker/walk", 200, False),
     ("cartpole-swingup@1024", "cartpole/swingup", 200, False),
+    ("arm-muscle-wrap@4096", "arm/muscle-wrap", 200, False),
     ("humanoid-run@8192", "humanoid/run", 100, False),
     ("humanoid-run-policy-obs@8192", "humanoid/run", 100, True),
 )
@@ -63,6 +135,8 @@ ROWS = (
 # (label, task, K, variant)
 EXTRA_MODES = (
     ("pendulum-swingup@1024", "pendulum/swingup", 200, "ctrl"),
+    ("walker-walk-tendon@4096", "walker/walk-tendon", 200, "ctrl"),
+    ("stateful-actuators@1024", "stateful/actuators", 200, "ctrl"),
     ("cheetah explore", "cheetah/run", 24, "explore"),
     ("cheetah gaussian_reset", "cheetah/run", 24, "gauss"),
 )
@@ -73,7 +147,8 @@ N_TIMED = 10
 LANE_OPS_PER_S = 33.5e12
 SFU_OPS_PER_S = 132 * 16 * 1.98e9
 BYTES_PER_S = 3.35e12
-BARS = dict(qpos=1e-4, qvel=1e-3, reward_sum=1e-4, obs=1e-4, ctrls=1e-5)
+BARS = dict(qpos=1e-4, qvel=1e-3, act=1e-4, reward_sum=1e-4, obs=1e-4,
+            ctrls=1e-5)
 T0 = time.perf_counter()
 
 
@@ -151,8 +226,11 @@ def parity_inputs(benv, fn, seed=7):
     data = benv.reset(gen)
     n0 = torch.randint(0, fn.spec.limit_n, (b,), generator=gen,
                        device="cuda")
-    state = (data.qpos.T.contiguous(), data.qvel.T.contiguous(),
-             torch.zeros((1, b), device="cuda"),
+    # activations start inside [0, 0.5), so the act path runs from step 0
+    act = torch.zeros((fn.na_rows, b), device="cuda")
+    if fn.spec.na:
+        act.uniform_(0.0, 0.5, generator=gen)
+    state = (data.qpos.T.contiguous(), data.qvel.T.contiguous(), act,
              data.qacc_warmstart.T.contiguous(),
              (n0.to(torch.float32) * fn.spec.h)[None].contiguous())
     ctrl = params = None
@@ -187,7 +265,7 @@ def time_kernel(fn, args):
 
 
 def max_errors(ko, po, collect):
-    e = dict(qpos=ko[0] - po[0], qvel=ko[1] - po[1],
+    e = dict(qpos=ko[0] - po[0], qvel=ko[1] - po[1], act=ko[2] - po[2],
              reward_sum=ko[5] - po[5])
     if collect:
         e["obs"] = ko[7] - po[7]
@@ -232,6 +310,9 @@ def parity_phase(modes, plain):
             + f"; every output bit-identical: {same}")
         if resets == 0:
             raise AssertionError(f"{label}: no env crossed the time limit")
+        if not same:
+            raise AssertionError(f"{label}: the kernel's outputs are not "
+                                 "bit-identical to the plain version's")
         for k, v in me.items():
             if not v <= BARS[k]:
                 raise AssertionError(f"{label}: {k} error {v} over "
@@ -291,6 +372,10 @@ def main_path_phase(rolls):
         for t in state:
             if not bool(torch.isfinite(t).all()):
                 raise AssertionError(f"{name}: non-finite state")
+        # muscle activations relax toward the clamped ctrl in [0, 1]
+        if roll.kernel.spec.na and not bool(
+                ((state[2] >= -1e-6) & (state[2] <= 1.0 + 1e-6)).all()):
+            raise AssertionError(f"{name}: activations left [0, 1]")
         if roll.collect:
             if (tuple(traj.obs.shape) != (k, roll.n_obs, b)
                     or tuple(traj.ctrls.shape)
@@ -341,8 +426,7 @@ def bound(fn, built, resets):
 def main():
     name, smi = device_phase()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    benvs = {key: suite.load_batched(*key.split("/"), b)
-             for key, b in BATCH.items()}
+    benvs = {key: make() for key, make in ENVS.items()}
     policies = {}
     for key in ("cheetah/run", "humanoid/run"):
         model = benvs[key].model

@@ -1,0 +1,102 @@
+"""Bench configurations outside the control suite.
+
+The port's copy of the reference bench's synthetic widening configs
+(``bench.py:275-308`` ``_BenchTask`` and ``bench.py:333-367``
+``_MUSCLE_WRAP_XML``, loaded as in ``bench.py:413-425``).  They are not
+suite tasks (the reference suite has none of them).  Usage::
+
+    benv = bench_configs.load_config("arm", "muscle-wrap", 4096)  # on cuda
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .api.environment import BatchedEnvironment
+from .mjcf.compile import load_model_from_xml
+from .model import Model
+from .state import Data
+from .suite.common import uniform
+
+# bench.py:333-367: a muscle on a spatial tendon that wraps a sphere with a
+# sidesite, a tendon spring/damper, a limited elbow and a motor
+MUSCLE_WRAP_XML = """
+<mujoco model="wrapped_tendon_arm">
+  <option timestep="0.002" solver="Newton" iterations="8" tolerance="0"/>
+  <worldbody>
+    <site name="anchor" pos="-0.05 0 1.25"/>
+    <body name="upper" pos="0 0 1">
+      <joint name="shoulder" type="hinge" axis="0 1 0" damping="0.1"/>
+      <geom name="ug" type="capsule" fromto="0 0 0 0.3 0 0" size="0.03"
+            mass="1"/>
+      <geom name="pulleyg" type="sphere" pos="0.3 0 0.0" size="0.05"
+            mass="0.05" contype="0" conaffinity="0"/>
+      <site name="pside" pos="0.3 0 0.08"/>
+      <body name="lower" pos="0.3 0 0">
+        <joint name="elbow" type="hinge" axis="0 1 0" damping="0.05"
+               range="-150 0" limited="true"/>
+        <geom name="lg" type="capsule" fromto="0 0 0 0.25 0 0" size="0.025"
+              mass="0.5"/>
+        <site name="tip" pos="0.25 0 0.02"/>
+      </body>
+    </body>
+  </worldbody>
+  <tendon>
+    <spatial name="string" stiffness="15" damping="0.5" springlength="0.45">
+      <site site="anchor"/>
+      <geom geom="pulleyg" sidesite="pside"/>
+      <site site="tip"/>
+    </spatial>
+  </tendon>
+  <actuator>
+    <muscle name="pull" tendon="string" ctrlrange="0 1"
+            lengthrange="0.3 0.7"/>
+    <motor name="drive" joint="shoulder" gear="1" ctrlrange="-1 1"/>
+  </actuator>
+</mujoco>
+"""
+
+class BenchTask:
+    """Minimal kernel-eligible task of the synthetic configs
+    (``bench.py:275-308``): observation on raw coordinates, reward
+    clip(qvel[0], 0, 1), uniform reset noise of 0.05 on every qpos."""
+
+    discount = 1.0
+    time_limit = 10.0
+
+    def init_episode(self, model: Model, data: Data,
+                     generator: torch.Generator) -> Data:
+        qpos = data.qpos
+        noise = 0.05 * uniform(generator, -1.0, 1.0, qpos.shape, qpos.dtype,
+                               qpos.device)
+        return data.replace(qpos=qpos + noise)
+
+    def kernel_hooks(self, model: Model):
+        from .ops.megakernel import EnvHooks
+
+        return EnvHooks(
+            reward=lambda bk, q, v, c: bk.clip(v[0], 0.0, 1.0),
+            time_limit=self.time_limit,
+            reset_noise=0.05,
+            observe=lambda bk, q, v: list(q) + list(v),
+            n_obs=model.nq + model.nv,
+        )
+
+
+# the configs' XMLs by (domain, task); every one runs the bench task
+CONFIGS = {("arm", "muscle-wrap"): MUSCLE_WRAP_XML}
+
+
+def load_config(domain: str, task: str, batch: int, dtype=np.float32,
+                device=None) -> BatchedEnvironment:
+    """A BatchedEnvironment of one of this module's configs with the bench
+    task, on ``device`` (None: the current CUDA device; raises without
+    one)."""
+    if (domain, task) not in CONFIGS:
+        raise ValueError(f"unknown bench config {domain}/{task}; available: "
+                         + ", ".join("/".join(k) for k in CONFIGS))
+    model = load_model_from_xml(CONFIGS[domain, task], dtype=dtype)
+    tdtype = torch.from_numpy(np.zeros(0, dtype=dtype)).dtype
+    return BatchedEnvironment(model, BenchTask(), batch, device=device,
+                              dtype=tdtype)

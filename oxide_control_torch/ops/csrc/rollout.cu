@@ -6,13 +6,14 @@
 // state row or trajectory row is coalesced across the warp.  The thread
 // keeps its env's state in registers for all K steps: the loop inside the
 // kernel takes the place of the TPU kernel's sequential chunk grid and its
-// VMEM carry.  Per step: pre-step observe, ctrl load or tanh-MLP policy
-// (weights staged once per block in shared memory), the emitted mj_step
-// (oxc_step, from ops/scalar_graph.py through ops/emit.py), reward, time
-// limit, divergence test, masked auto-reset with Philox noise, and the
-// trajectory rows stored to global memory.  Every per-env array is sized
-// by the OXC_* macros of the model's emitted header (oxc_model.h), so one
-// shell serves every model of the suite.
+// VMEM carry (q, v, act and the Newton warmstart).  Per step: pre-step
+// observe, ctrl load or tanh-MLP policy (weights staged once per block in
+// shared memory), the emitted mj_step (oxc_step, from ops/scalar_graph.py
+// through ops/emit.py), reward, time limit, divergence test, masked
+// auto-reset with Philox noise, and the trajectory rows stored to global
+// memory.  Every per-env array is sized by the OXC_* macros of the model's
+// emitted header (oxc_model.h), so one shell serves every model of the
+// class.
 //
 // What bounds it: compute.  One env-step is ~1e4 (cartpole, four RK4
 // passes) to ~4e5 (humanoid) scalar f32 lane-ops (the emitter counts them
@@ -31,7 +32,9 @@
 #include "rollout.cuh"
 #include "oxc_model.h"
 
-#define OXC_NA_ROWS 1
+// the act input and output hold max(na, 1) rows: a model without
+// activation state carries one row, passed through
+#define OXC_NA_ROWS (OXC_NA > 0 ? OXC_NA : 1)
 // one warp per block: a batch of 4096 spreads over 128 SMs
 #define OXC_BLOCK 32
 
@@ -70,9 +73,10 @@ oxc_rollout_kernel(const float* __restrict__ qpos,
   const bool collect = obs_o != nullptr;
   const uint32_t seed = (uint32_t)seed_ptr[0];
 
-  float q[OXC_NQ], v[OXC_NV], w[OXC_NV];
+  float q[OXC_NQ], v[OXC_NV], w[OXC_NV], a[OXC_NA_ROWS];
   for (int i = 0; i < OXC_NQ; ++i) q[i] = qpos[i * B + env];
   for (int i = 0; i < OXC_NV; ++i) v[i] = qvel[i * B + env];
+  for (int i = 0; i < OXC_NA_ROWS; ++i) a[i] = act[i * B + env];
   for (int i = 0; i < OXC_NV; ++i) w[i] = ws[i * B + env];
   // exact step counter (time is always a multiple of h here)
   int n = (int)rintf(time_in[env] * OXC_INV_H);
@@ -104,12 +108,13 @@ oxc_rollout_kernel(const float* __restrict__ qpos,
       for (int u = 0; u < OXC_NU; ++u)
         c[u] = ctrl[((size_t)k * OXC_NU + u) * B + env];
 
-    float qn[OXC_NQ], vn[OXC_NV], wn[OXC_NV];
-    oxc_step(q, v, w, c, qn, vn, wn);
+    float qn[OXC_NQ], vn[OXC_NV], wn[OXC_NV], an[OXC_NA_ROWS];
+    oxc_step(q, v, a, w, c, qn, vn, an, wn);
     n += 1;
 
-    // divergence (non-finite or |x| > 1e10) + time limit; bad is known
-    // before the reward so a diverged step's reward is masked to 0
+    // divergence (non-finite or |x| > 1e10, on q and v only) + time
+    // limit; bad is known before the reward so a diverged step's reward is
+    // masked to 0
     bool bad = false;
     for (int i = 0; i < OXC_NQ; ++i)
       bad = bad || !oxc_isfinite(qn[i]) || fabsf(qn[i]) > 1e10f;
@@ -127,6 +132,7 @@ oxc_rollout_kernel(const float* __restrict__ qpos,
     for (int i = 0; i < OXC_NQ; ++i) q[i] = qn[i];
     for (int i = 0; i < OXC_NV; ++i) v[i] = vn[i];
     for (int i = 0; i < OXC_NV; ++i) w[i] = wn[i];
+    for (int i = 0; i < OXC_NA; ++i) a[i] = an[i];
     if (done) {
       // masked auto-reset: nq uniforms + (nq + nv) Box-Muller normals
       float s[OXC_NDRAW], z[OXC_NQ + OXC_NV];
@@ -136,6 +142,7 @@ oxc_rollout_kernel(const float* __restrict__ qpos,
         z[i] = oxc_box_muller(s[OXC_NQ + i], s[2 * OXC_NQ + OXC_NV + i]);
       oxc_reset(s, z, q, v);
       for (int i = 0; i < OXC_NV; ++i) w[i] = 0.0f;
+      for (int i = 0; i < OXC_NA; ++i) a[i] = 0.0f;
       n = 0;
     }
   }
@@ -143,8 +150,7 @@ oxc_rollout_kernel(const float* __restrict__ qpos,
   for (int i = 0; i < OXC_NQ; ++i) qpos_o[i * B + env] = q[i];
   for (int i = 0; i < OXC_NV; ++i) qvel_o[i * B + env] = v[i];
   for (int i = 0; i < OXC_NV; ++i) ws_o[i * B + env] = w[i];
-  // na == 0 in the kernel class: the one act row passes through
-  for (int i = 0; i < OXC_NA_ROWS; ++i) act_o[i * B + env] = act[i * B + env];
+  for (int i = 0; i < OXC_NA_ROWS; ++i) act_o[i * B + env] = a[i];
   time_o[env] = (float)n * OXC_H;
   reward_sum[env] = rew;
   diverged[env] = ndiv;

@@ -100,6 +100,7 @@ class EnvSpec:
     nq: int
     nv: int
     nu: int
+    na: int
     n_obs: int
     h: float
     limit_n: int
@@ -135,9 +136,10 @@ def env_spec(model: Model, hooks: EnvHooks) -> EnvSpec:
                 f"qpos[{i}] is a quaternion coordinate: its reset amplitude "
                 f"must be 0 (uniform {uamp[i]}, Gaussian {qsig[i]}), or a "
                 "reset leaves the unit sphere")
-    return EnvSpec(nq=nq, nv=model.nv, nu=model.nu, n_obs=hooks.n_obs, h=h,
-                   limit_n=limit_n, qpos0=tuple(qpos0), uamp=tuple(uamp),
-                   qsig=tuple(qsig), vsig=float(hooks.reset_qvel_sigma))
+    return EnvSpec(nq=nq, nv=model.nv, nu=model.nu, na=model.na,
+                   n_obs=hooks.n_obs, h=h, limit_n=limit_n,
+                   qpos0=tuple(qpos0), uamp=tuple(uamp), qsig=tuple(qsig),
+                   vsig=float(hooks.reset_qvel_sigma))
 
 
 def _quat_coords(model: Model) -> list[int]:
@@ -286,21 +288,23 @@ def kernel_source(model: Model, hooks: EnvHooks,
     if hooks.observe is None:
         raise ValueError("the rollout kernel needs EnvHooks.observe")
     spec = env_spec(model, hooks)
-    nq, nv, nu, n_obs = spec.nq, spec.nv, spec.nu, spec.n_obs
+    nq, nv, nu, na, n_obs = spec.nq, spec.nv, spec.nu, spec.na, spec.n_obs
     T = ctype
     parts = []
 
     em = Emitter(ctype)
     step = sg.build_step(model, em)
-    q, v = em.load("q", nq), em.load("v", nv)
+    q, v, a = em.load("q", nq), em.load("v", nv), em.load("a", na)
     w, c = em.load("w", nv), em.load("c", nu)
-    qn, vn, _, wn = step(q, v, [], w, c)
+    qn, vn, an, wn = step(q, v, a, w, c)
     em.store("q_out", qn)
     em.store("v_out", vn)
+    em.store("a_out", an)
     em.store("w_out", wn)
     parts.append(em.function(
-        f"void oxc_step(const {T}* q, const {T}* v, const {T}* w, "
-        f"const {T}* c, {T}* q_out, {T}* v_out, {T}* w_out)"))
+        f"void oxc_step(const {T}* q, const {T}* v, const {T}* a, "
+        f"const {T}* w, const {T}* c, {T}* q_out, {T}* v_out, "
+        f"{T}* a_out, {T}* w_out)"))
     step_ops, step_sfu = em.ops, em.sfu_ops
 
     eo = Emitter(ctype)
@@ -332,6 +336,7 @@ def kernel_source(model: Model, hooks: EnvHooks,
         f"#define OXC_NQ {nq}",
         f"#define OXC_NV {nv}",
         f"#define OXC_NU {nu}",
+        f"#define OXC_NA {na}",
         f"#define OXC_NOBS {n_obs}",
         f"#define OXC_NDRAW {spec.n_draws}",
         f"#define OXC_LIMIT_N {spec.limit_n}",
@@ -375,13 +380,13 @@ class _GraphedStep:
     def __init__(self, bk, step, spec: EnvSpec):
         dev = bk.device
         self.ins = [torch.zeros((n, bk.batch), device=dev, dtype=bk.dtype)
-                    for n in (spec.nq, spec.nv, spec.nv, spec.nu)]
+                    for n in (spec.nq, spec.nv, spec.na, spec.nv, spec.nu)]
 
         def run():
-            q, v, w, c = (list(x) for x in self.ins)
-            qn, vn, _, wn = step(q, v, [], w, c)
-            return [torch.stack([bk.full(x) for x in xs])
-                    for xs in (qn, vn, wn)]
+            q, v, a, w, c = (list(x) for x in self.ins)
+            outs = step(q, v, a, w, c)
+            return [torch.stack([bk.full(x) for x in xs]) if xs else None
+                    for xs in outs]
 
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
@@ -394,13 +399,13 @@ class _GraphedStep:
         with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
             self.outs = run()
 
-    def __call__(self, q, v, act, w, c):
-        for buf, xs in zip(self.ins, (q, v, w, c)):
+    def __call__(self, q, v, a, w, c):
+        for buf, xs in zip(self.ins, (q, v, a, w, c)):
             if xs:
                 buf.copy_(torch.stack(xs))
         self.graph.replay()
-        qn, vn, wn = (list(o.clone()) for o in self.outs)
-        return qn, vn, list(act), wn
+        return tuple([] if o is None else list(o.clone())
+                     for o in self.outs)
 
 
 class RolloutFn:
@@ -574,8 +579,8 @@ class RolloutFn:
 
         q = [qpos[i] for i in range(s.nq)]
         v = [qvel[i] for i in range(s.nv)]
+        a = [act[i] for i in range(s.na)]
         w = [ws[i] for i in range(s.nv)]
-        a_out = act.clone()
         n = torch.round(time[0] * (1.0 / h)).to(torch.int32)
         rew = torch.zeros(B, device=dev, dtype=dtype)
         ndiv = torch.zeros(B, device=dev, dtype=dtype)
@@ -602,7 +607,7 @@ class RolloutFn:
                 if self.policy is not None:
                     outs[10][k] = cmat
 
-            q, v, _, w = step(q, v, [], w, c)
+            q, v, a, w = step(q, v, a, w, c)
             n = n + 1
             # divergence + time limit (bad before the reward, so a NaN
             # reward from a diverged state is masked, not accumulated)
@@ -627,12 +632,14 @@ class RolloutFn:
                  for i in range(s.nq)]
             v = [torch.where(done, bk.full(v_reset[i]), bk.full(v[i]))
                  for i in range(s.nv)]
+            a = [torch.where(done, 0.0, bk.full(a[i])) for i in range(s.na)]
             w = [torch.where(done, 0.0, bk.full(w[i])) for i in range(s.nv)]
             n = torch.where(done, 0, n)
 
         outs[0].copy_(torch.stack(q))
         outs[1].copy_(torch.stack(v))
-        outs[2].copy_(a_out)
+        # na == 0 models carry one act row, passed through
+        outs[2].copy_(torch.stack(a) if s.na else act)
         outs[3].copy_(torch.stack(w))
         outs[4][0] = n.to(dtype) * h
         outs[5][0] = rew

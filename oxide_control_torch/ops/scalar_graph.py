@@ -1,10 +1,12 @@
 """Scalar-graph physics step, written once against a small backend.
 
 The port of ``oxide_control_tpu/ops/scalar_graph.py`` for the control
-suite's class (see :func:`supports`).  The whole ``mj_step`` of one env is
-built as a graph of elementwise operations on per-env scalars; the model's
-structure (tree topology, joint axes, geom pairs, constraint rows) is
-compiled away at build time:
+suite's class widened by stateful and muscle actuators, fixed and spatial
+tendons (sphere and cylinder wraps) and friction loss (see
+:func:`supports`).  The whole ``mj_step`` of one env is built as a graph
+of elementwise operations on per-env scalars; the model's structure (tree
+topology, joint axes, geom pairs, constraint rows) is compiled away at
+build time:
 
 * every per-env scalar is either a **python float constant** (folded at
   build time in double precision -- structural zeros vanish, so the
@@ -21,11 +23,13 @@ compiled away at build time:
   - ``ops.emit.Emitter``: values are symbols that write SSA-style C into
     the per-model step body of the CUDA rollout kernel.
 
-The Newton iterations and the line search's grow/bisect loops run through
-``bk.fori`` with explicit carries: Python loops on the torch backend, real
-C ``for`` loops in the emitted body (same arithmetic, a small kernel
-source).  Loop carries are always backend values, never folded constants,
-so both backends fold exactly the same constants.
+The Newton iterations, the line search's grow/bisect loops and the
+inside-sidesite wrap search (built only where the model lets the sidesite
+lie inside its geom) run through ``bk.fori`` with explicit carries:
+Python loops on the torch backend, real C ``for`` loops in the emitted body
+(same arithmetic, a small kernel source).  Loop carries are always backend
+values, never folded constants, so both backends fold exactly the same
+constants.
 """
 
 from __future__ import annotations
@@ -47,7 +51,7 @@ from ..model import (
     SolverType,
     TrnType,
 )
-from ..physics import smooth
+from ..physics import muscle, smooth
 from ..physics.collision import max_contacts_per_pair
 
 # ---------------------------------------------------------------------------
@@ -401,6 +405,7 @@ def motion_cross(v, c):
 _SUPPORTED_PAIRS = (
     (GeomType.PLANE, GeomType.SPHERE),
     (GeomType.PLANE, GeomType.CAPSULE),
+    (GeomType.SPHERE, GeomType.SPHERE),
 )
 
 
@@ -415,10 +420,14 @@ def unsupported_reason(model: Model) -> str | None:
       their body
     * integrator: Euler (implicit joint damping included) or RK4
     * solver: Newton with pyramidal cones at condim 1 or 3
-    * contacts: plane-sphere and plane-capsule
-    * actuators: stateless motors (fixed gain, no bias) on hinge or slide
-      joints
-    * no tendons, equality, mocap bodies, friction loss or fluid forces
+    * contacts: plane-sphere, plane-capsule and sphere-sphere
+    * actuators: every dynamics (none, integrator, filter, filterexact,
+      muscle), gain and bias (fixed, affine, muscle), with a joint
+      (hinge, slide, free), tendon or site (no refsite) transmission
+    * tendons: fixed, and spatial (site paths, pulleys, sphere and
+      cylinder wraps with or without a sidesite): springs, dampers,
+      limits, friction loss and transmission; dof friction loss
+    * no equality, mocap bodies or fluid forces
     """
     for j in range(model.njnt):
         jt = JointType(model.jnt_type[j])
@@ -448,27 +457,32 @@ def unsupported_reason(model: Model) -> str | None:
         if c not in (1, 3):
             return (f"condim {c}: condim 4/6 rows are ROADMAP Queue A "
                     "item 10.4")
-    if model.na:
-        return "stateful actuators are ROADMAP Queue A item 10.1"
+    refid = tuple(model.actuator_refid) or (-1,) * model.nu
     for u in range(model.nu):
-        if (TrnType(model.actuator_trntype[u]) != TrnType.JOINT
-                or JointType(model.jnt_type[model.actuator_trnid[u]])
-                not in (JointType.HINGE, JointType.SLIDE)
-                or DynType(model.actuator_dyntype[u]) != DynType.NONE
-                or GainType(model.actuator_gaintype[u]) != GainType.FIXED
-                or BiasType(model.actuator_biastype[u]) != BiasType.NONE):
-            return (f"actuator {u} is not a motor on a hinge or slide "
-                    "joint: other actuators and ball/free transmissions are "
-                    "ROADMAP Queue A item 10.1")
-    if model.ntendon:
-        return "tendons are ROADMAP Queue A items 10.1 and 10.5"
+        trn = TrnType(model.actuator_trntype[u])
+        if trn not in (TrnType.JOINT, TrnType.TENDON, TrnType.SITE):
+            return (f"actuator {u}: {trn.name} transmission is outside the "
+                    "kernel class; it stays on the general path (ROADMAP "
+                    "Queue A item 11)")
+        if trn == TrnType.SITE and refid[u] >= 0:
+            return (f"actuator {u}: a site transmission with a refsite is "
+                    "outside the kernel class; it stays on the general path "
+                    "(ROADMAP Queue A item 11)")
+    for t in range(model.ntendon):
+        if _tendon_kinds(model)[t] != 1:
+            continue
+        for entry in smooth._tendon_path(model, t):
+            if entry[0] != 0 and GeomType(model.geom_type[entry[1]]) not in (
+                    GeomType.SPHERE, GeomType.CYLINDER):
+                return (f"tendon {t} wraps a "
+                        f"{GeomType(model.geom_type[entry[1]]).name} geom: "
+                        "only sphere and cylinder wraps are in the kernel "
+                        "class; others stay on the general path (ROADMAP "
+                        "Queue A item 11)")
     if model.neq:
         return "equality constraints are ROADMAP Queue A item 10.2"
     if model.nmocap:
         return "mocap bodies are ROADMAP Queue A item 10.8"
-    if (not model.opt.disable_frictionloss
-            and np.any(np.asarray(model.dof_frictionloss) > 0)):
-        return "friction loss is ROADMAP Queue A item 10.1"
     if (model.opt.density != 0.0 or model.opt.viscosity != 0.0
             or any(float(w) != 0.0 for w in model.opt.wind)):
         return "fluid forces are ROADMAP Queue A item 10.6"
@@ -504,10 +518,418 @@ class _ModelConsts:
             "jnt_solimp", "dof_armature", "dof_damping", "dof_invweight0",
             "body_invweight0", "geom_pos", "geom_quat", "geom_size",
             "actuator_gear", "actuator_ctrlrange", "actuator_forcerange",
-            "actuator_gainprm", "pair_friction", "pair_solref",
-            "pair_solimp", "pair_margin", "pair_gap", "site_pos",
+            "actuator_gainprm", "actuator_biasprm", "actuator_dynprm",
+            "actuator_actrange", "actuator_lengthrange", "actuator_acc0",
+            "pair_friction", "pair_solref", "pair_solimp", "pair_margin",
+            "pair_gap", "site_pos", "site_quat", "dof_frictionloss",
+            "dof_solref", "dof_solimp", "tendon_range", "tendon_stiffness",
+            "tendon_damping", "tendon_frictionloss", "tendon_lengthspring",
+            "tendon_margin", "tendon_solref_lim", "tendon_solimp_lim",
+            "tendon_solref_fri", "tendon_solimp_fri", "tendon_invweight0",
+            "tendon_wrap_coef",
         ):
             setattr(self, name, _np(getattr(model, name)))
+
+
+# ---------------------------------------------------------------------------
+# tendons: fixed couplings and spatial paths with sphere/cylinder wraps
+# ---------------------------------------------------------------------------
+
+
+def _tendon_kinds(model):
+    return list(model.tendon_kind) or [0] * model.ntendon
+
+
+def _point_jac_sg(model, cdof, subtree_com, bd_mask, point, body):
+    """Sparse dict dof -> vec3: translational Jacobian of world `point`
+    rigidly attached to `body` (mj_jac jacp in scalar form)."""
+    out = {}
+    origin = subtree_com[model.body_rootid[body]]
+    arm = vsub3(point, origin)
+    for dof in range(model.nv):
+        if not bd_mask[body, dof]:
+            continue
+        ang, lin = cdof[dof]
+        out[dof] = vadd3(lin, cross3(ang, arm))
+    return out
+
+
+def _wrap_circle2d_sg(bk, d0, d1, sd, radius, sd_inside):
+    """Scalar twin of smooth.wrap_circle2d: circle of ``radius`` at the
+    origin, endpoints d0/d1 (2-tuples of lane scalars), side reference sd
+    (2-tuple) or None.  Constants are materialized (``bk.full``) so the
+    branch-free where/compare logic stays per-lane.  ``sd_inside`` is
+    whether sd lies inside the circle: a lane value, or a Python bool where
+    the model fixes it (then only the regime it selects is built, with the
+    values the per-lane selection would give).  Returns (active, t0, t1,
+    arc)."""
+    tiny = 1e-14
+    mat = bk.full
+    not_ = bk.not_
+    d0 = (mat(d0[0]), mat(d0[1]))
+    d1 = (mat(d1[0]), mat(d1[1]))
+
+    def dot2(a, b):
+        return a[0] * b[0] + a[1] * b[1]
+
+    sq0 = dot2(d0, d0)
+    sq1 = dot2(d1, d1)
+    r2 = radius * radius
+    seg = (d1[0] - d0[0], d1[1] - d0[1])
+    ss = bk.maximum(dot2(seg, seg), tiny)
+    tpar = bk.clip(-dot2(d0, seg) / ss, 0.0, 1.0)
+    pnt = (d0[0] + tpar * seg[0], d0[1] + tpar * seg[1])
+    dist2 = dot2(pnt, pnt)
+    crosses = dist2 < r2
+    ends_out = (sq0 > r2) & (sq1 > r2)
+
+    ccw_nat = (d0[0] * d1[1] - d0[1] * d1[0]) > 0
+    sd_in = None
+    if sd is None:
+        active = crosses & ends_out
+        use_ccw = ccw_nat
+    else:
+        sd = (mat(sd[0]), mat(sd[1]))
+        sd_in = (dot2(sd, sd) < r2) if sd_inside is None else sd_inside
+        if sd_in is True:
+            active = not_(crosses) & ends_out
+        elif sd_in is False:
+            flip = dot2(pnt, sd) < 0
+            active = (crosses | flip) & ends_out
+            use_ccw = (ccw_nat & not_(flip)) | (not_(ccw_nat) & flip)
+        else:
+            flip = dot2(pnt, sd) < 0
+            active = ((sd_in & not_(crosses))
+                      | (not_(sd_in) & (crosses | flip))) & ends_out
+            flip_o = flip & not_(sd_in)
+            use_ccw = (ccw_nat & not_(flip_o)) | (not_(ccw_nat) & flip_o)
+
+    def tangents(dv, sq):
+        sq = bk.maximum(sq, r2 + tiny)
+        root = bk.sqrt(bk.maximum(sq - r2, 0.0))
+        base = ((r2 / sq) * dv[0], (r2 / sq) * dv[1])
+        s = radius * root / sq
+        off = (s * (-dv[1]), s * dv[0])
+        return ((base[0] + off[0], base[1] + off[1]),
+                (base[0] - off[0], base[1] - off[1]))
+
+    if sd_in is not True:
+        t0p, t0m = tangents(d0, sq0)
+        t1p, t1m = tangents(d1, sq1)
+        t0 = tuple(bk.where(use_ccw, t0p[i], t0m[i]) for i in range(2))
+        t1 = tuple(bk.where(use_ccw, t1m[i], t1p[i]) for i in range(2))
+        cosang = bk.clip(dot2(t0, t1) / r2, -1.0, 1.0)
+        # arccos through atan2_sg (built from arithmetic, sqrt, sin and cos)
+        arc = radius * atan2_sg(
+            bk, bk.sqrt(bk.maximum(1.0 - cosang * cosang, 0.0)), cosang)
+
+    if sd is not None and sd_in is not False:
+        # inside-sidesite regime (smooth.wrap_circle2d's wrap_inside):
+        # single touch point minimizing |d0-T| + |T-d1| -- a 32-angle
+        # tournament and 60 golden-section steps, per lane, as loops
+        def f_of(th):
+            tx, ty = radius * bk.cos(th), radius * bk.sin(th)
+            a0, a1 = tx - d0[0], ty - d0[1]
+            b0, b1 = tx - d1[0], ty - d1[1]
+            return bk.sqrt(a0 * a0 + a1 * a1) + bk.sqrt(b0 * b0 + b1 * b1)
+
+        step = 2.0 * math.pi / 32.0
+
+        def scan(c):
+            best_f, best_th, kf = c
+            thk = kf * step
+            fk_ = f_of(thk)
+            take = fk_ < best_f
+            return [bk.where(take, fk_, best_f), bk.where(take, thk, best_th),
+                    kf + 1.0]
+
+        best_f, best_th, _ = bk.fori(31, [f_of(mat(0.0)), 0.0, 1.0], scan)
+        lo = best_th - step
+        hi = best_th + step
+        gr = 0.6180339887498949
+        a_, b_ = lo, hi
+        c_ = b_ - gr * (b_ - a_)
+        e_ = a_ + gr * (b_ - a_)
+
+        def golden(c):
+            a_, b_, c_, e_, fc, fe = c
+            take_c = fc < fe
+            b_ = bk.where(take_c, e_, b_)
+            a_ = bk.where(take_c, a_, c_)
+            c_, e_ = b_ - gr * (b_ - a_), a_ + gr * (b_ - a_)
+            return [a_, b_, c_, e_, f_of(c_), f_of(e_)]
+
+        a_, b_, _, _, _, _ = bk.fori(
+            60, [a_, b_, c_, e_, f_of(c_), f_of(e_)], golden)
+        th = 0.5 * (a_ + b_)
+        T = (radius * bk.cos(th), radius * bk.sin(th))
+        if sd_in is True:
+            return active, T, T, mat(0.0)
+        t0 = tuple(bk.where(sd_in, T[i], t0[i]) for i in range(2))
+        t1 = tuple(bk.where(sd_in, T[i], t1[i]) for i in range(2))
+        arc = bk.where(sd_in, 0.0, arc)
+    return active, t0, t1, arc
+
+
+def _wrap_segment_sg(bk, p1, p2, gpos, gmat, radius, is_cyl, side_w,
+                     side_in=None):
+    """Scalar twin of smooth.wrap_segment: world-frame path p1 -> p2
+    possibly wrapping the sphere/cylinder (gpos, gmat 9-tuple, radius).
+    ``side_in`` is whether the sidesite ``side_w`` lies inside the geom
+    where the model fixes it (``_sidesite_inside``), else None.
+    Returns (active, t0w, t1w, wlen)."""
+    mat = bk.full
+    l0 = mat_vec_t(gmat, vsub3(p1, gpos))
+    l1 = mat_vec_t(gmat, vsub3(p2, gpos))
+    ls = None if side_w is None else mat_vec_t(gmat, vsub3(side_w, gpos))
+    r2 = radius * radius
+    if is_cyl:
+        d0, z0 = (l0[0], l0[1]), mat(l0[2])
+        d1, z1 = (l1[0], l1[1]), mat(l1[2])
+        sd = None if ls is None else (ls[0], ls[1])
+        sd_inside = side_in
+        if ls is not None and side_in is None:
+            s0, s1 = mat(ls[0]), mat(ls[1])
+            sd_inside = s0 * s0 + s1 * s1 < r2
+        active, t0, t1, arc = _wrap_circle2d_sg(bk, d0, d1, sd, radius,
+                                                sd_inside)
+        d0c, d0s = mat(d0[0]) - t0[0], mat(d0[1]) - t0[1]
+        d1c, d1s = mat(d1[0]) - t1[0], mat(d1[1]) - t1[1]
+        len0 = bk.sqrt(d0c * d0c + d0s * d0s)
+        len1 = bk.sqrt(d1c * d1c + d1s * d1s)
+        tot = bk.maximum(len0 + arc + len1, 1e-12)
+        zt0 = z0 + (z1 - z0) * len0 / tot
+        zt1 = z0 + (z1 - z0) * (len0 + arc) / tot
+        dz = zt1 - zt0
+        wlen = bk.sqrt(arc * arc + dz * dz)
+        t0w = vadd3(gpos, mat_vec(gmat, (t0[0], t0[1], zt0)))
+        t1w = vadd3(gpos, mat_vec(gmat, (t1[0], t1[1], zt1)))
+        return active, t0w, t1w, wlen
+    # sphere: 2D problem in the plane through l0, l1 and the center
+    l0 = tuple(mat(x) for x in l0)
+    l1 = tuple(mat(x) for x in l1)
+    n0 = bk.sqrt(bk.maximum(l0[0] * l0[0] + l0[1] * l0[1] + l0[2] * l0[2],
+                            0.0))
+    inv0 = 1.0 / bk.maximum(n0, 1e-12)
+    e1 = (l0[0] * inv0, l0[1] * inv0, l0[2] * inv0)
+    dot_e1 = e1[0] * l1[0] + e1[1] * l1[1] + e1[2] * l1[2]
+    t_vec = tuple(l1[i] - e1[i] * dot_e1 for i in range(3))
+    tn = bk.sqrt(t_vec[0] * t_vec[0] + t_vec[1] * t_vec[1]
+                 + t_vec[2] * t_vec[2])
+    alt = (e1[1] - e1[2], e1[2] - e1[0], e1[0] - e1[1])
+    altn = bk.sqrt(alt[0] * alt[0] + alt[1] * alt[1] + alt[2] * alt[2])
+    alt2 = (-e1[1], e1[0], mat(0.0))
+    alt2n = bk.maximum(
+        bk.sqrt(alt2[0] * alt2[0] + alt2[1] * alt2[1] + alt2[2] * alt2[2]),
+        1e-12)
+    alt = tuple(
+        bk.where(altn > 1e-9, alt[i] / bk.maximum(altn, 1e-12),
+                 alt2[i] / alt2n)
+        for i in range(3)
+    )
+    invt = 1.0 / bk.maximum(tn, 1e-12)
+    e2 = tuple(bk.where(tn > 1e-9, t_vec[i] * invt, alt[i])
+               for i in range(3))
+    d0 = (n0, mat(0.0))
+    d1 = (dot_e1, e2[0] * l1[0] + e2[1] * l1[1] + e2[2] * l1[2])
+    sd, sd_inside = None, side_in
+    if ls is not None:
+        ls = tuple(mat(x) for x in ls)
+        sd = (e1[0] * ls[0] + e1[1] * ls[1] + e1[2] * ls[2],
+              e2[0] * ls[0] + e2[1] * ls[1] + e2[2] * ls[2])
+        if side_in is None:
+            sd_inside = (ls[0] * ls[0] + ls[1] * ls[1] + ls[2] * ls[2]
+                         < r2)
+    active, t0, t1, arc = _wrap_circle2d_sg(bk, d0, d1, sd, radius,
+                                            sd_inside)
+    t0w = vadd3(gpos, mat_vec(gmat, tuple(
+        e1[i] * t0[0] + e2[i] * t0[1] for i in range(3))))
+    t1w = vadd3(gpos, mat_vec(gmat, tuple(
+        e1[i] * t1[0] + e2[i] * t1[1] for i in range(3))))
+    return active, t0w, t1w, arc
+
+
+def _sidesite_inside(model, mc, side, g):
+    """Whether sidesite ``side`` lies inside wrap geom ``g`` (the ball, or
+    the cylinder's infinite extent) as a build-time bool, where the two
+    share a body and the site is clear of the surface by 1% of r^2 (far
+    beyond the rounding of the per-lane test); else None, decided per
+    lane.  On one body the site's geom-frame position is a constant."""
+    if model.site_bodyid[side] != model.geom_bodyid[g]:
+        return None
+    rel = (np.asarray(mc.site_pos[side], np.float64)
+           - np.asarray(mc.geom_pos[g], np.float64))
+    rot = np.asarray(quat_to_mat(tuple(float(x) for x in mc.geom_quat[g])),
+                     np.float64).reshape(3, 3)
+    loc = rot.T @ rel
+    if GeomType(model.geom_type[g]) == GeomType.CYLINDER:
+        loc = loc[:2]
+    d2, r2 = float(loc @ loc), float(mc.geom_size[g][0]) ** 2
+    if abs(d2 - r2) <= 1e-2 * r2:
+        return None
+    return d2 < r2
+
+
+def _tendon_len_mom_sg(bk, model, mc, qpos, qvel, fk, bd_mask):
+    """Per-tendon (length, moment {dof: coef}, velocity) for fixed and
+    spatial tendons -- the scalar mj_tendon.  Fixed tendons keep python
+    float moments (structural sparsity folds at build time); spatial
+    tendons route through site positions and sphere/cylinder wraps from
+    ``fk``.  The step computes this once per forward pass and hands it to
+    the passive, actuation and constraint stages."""
+    lens, moms, vels = [], [], []
+    for t, kind in enumerate(_tendon_kinds(model)):
+        if kind != 1:
+            adr, num = model.tendon_adr[t], model.tendon_num[t]
+            L = 0.0
+            V = 0.0
+            mom = {}
+            for w in range(adr, adr + num):
+                jid = model.tendon_wrap_jnt[w]
+                coef = float(mc.tendon_wrap_coef[w])
+                L = fma(L, coef, qpos[model.jnt_qposadr[jid]])
+                vadr = model.jnt_dofadr[jid]
+                V = fma(V, coef, qvel[vadr])
+                mom[vadr] = mom.get(vadr, 0.0) + coef
+            lens.append(L)
+            moms.append(mom)
+            vels.append(V)
+            continue
+        L, mom = _spatial_tendon_sg(bk, model, mc, fk, bd_mask, t)
+        lens.append(L)
+        moms.append(mom)
+        vels.append(_jdotv(mom, qvel))
+    return lens, moms, vels
+
+
+def _spatial_tendon_sg(bk, model, mc, fk, bd_mask, t):
+    """One spatial tendon's (length, moment dict): straight segments add
+    |p2 - p1| / div and u . (J2 - J1) / div; a wrap adds both tangent
+    segments and the on-surface arc, its tangent points rigidly attached
+    to the wrap geom's body (mj_tendon's wrap-point chain)."""
+    mat = bk.full
+    xpos, xmat = fk["xpos"], fk["xmat"]
+    subtree_com, cdof = fk["subtree_com"], fk["cdof"]
+
+    def site_p(s):
+        b = model.site_bodyid[s]
+        return vadd3(xpos[b], mat_vec(xmat[b], tuple(mc.site_pos[s])))
+
+    def site_jac(s):
+        return _point_jac_sg(model, cdof, subtree_com, bd_mask,
+                             site_p(s), model.site_bodyid[s])
+
+    z3 = (0.0, 0.0, 0.0)
+
+    def seg_term(p1, j1, p2, j2, div):
+        dvec = vsub3(p2, p1)
+        n = bk.sqrt(bk.maximum(mat(dot3(dvec, dvec)), 1e-24))
+        u = vscale3(dvec, 1.0 / n)
+        dr = {}
+        for dof in set(j1) | set(j2):
+            dr[dof] = dot3(vsub3(j2.get(dof, z3), j1.get(dof, z3)),
+                           u) / div
+        return n / div, dr
+
+    def row_add(row, d):
+        for k_, v_ in d.items():
+            row[k_] = add(row.get(k_, 0.0), v_)
+
+    path = smooth._tendon_path(model, t)
+    L = 0.0
+    row = {}
+    k = 0
+    while k < len(path) - 1:
+        kind1, obj1, _side1, br1, div = path[k]
+        assert kind1 == 0, "path segments start at sites"
+        nxt = path[k + 1]
+        if nxt[3] != br1:
+            k += 1
+            continue  # pulley between: no segment
+        p1, j1 = site_p(obj1), site_jac(obj1)
+        if nxt[0] == 0:  # plain site-site segment
+            p2, j2 = site_p(nxt[1]), site_jac(nxt[1])
+            dl, dr = seg_term(p1, j1, p2, j2, div)
+            L = add(L, dl)
+            row_add(row, dr)
+            k += 1
+            continue
+        # wrap geom between this site and the next
+        g = nxt[1]
+        side = nxt[2]
+        s2 = path[k + 2][1]
+        assert path[k + 2][0] == 0, "wrap geom bracketed by sites"
+        p2, j2 = site_p(s2), site_jac(s2)
+        gb = model.geom_bodyid[g]
+        gpos = vadd3(xpos[gb], mat_vec(xmat[gb], tuple(mc.geom_pos[g])))
+        gmat = _mat_mul_const(xmat[gb], quat_to_mat(tuple(mc.geom_quat[g])))
+        is_cyl = GeomType(model.geom_type[g]) == GeomType.CYLINDER
+        radius = float(mc.geom_size[g][0])
+        side_w = None if side < 0 else site_p(side)
+        active, t0w, t1w, wlen = _wrap_segment_sg(
+            bk, p1, p2, gpos, gmat, radius, is_cyl, side_w,
+            None if side < 0 else _sidesite_inside(model, mc, side, g))
+        jt0 = _point_jac_sg(model, cdof, subtree_com, bd_mask, t0w, gb)
+        jt1 = _point_jac_sg(model, cdof, subtree_com, bd_mask, t1w, gb)
+        dl0, dr0 = seg_term(p1, j1, t0w, jt0, div)
+        _dla, dra = seg_term(t0w, jt0, t1w, jt1, div)
+        dl1, dr1 = seg_term(t1w, jt1, p2, j2, div)
+        dls, drs = seg_term(p1, j1, p2, j2, div)
+        L = add(L, bk.where(active, dl0 + wlen / div + dl1, mat(dls)))
+        row_w = {}
+        row_add(row_w, dr0)
+        row_add(row_w, dra)
+        row_add(row_w, dr1)
+        for dof in set(row_w) | set(drs):
+            row[dof] = add(
+                row.get(dof, 0.0),
+                bk.where(active, mat(row_w.get(dof, 0.0)),
+                         mat(drs.get(dof, 0.0))),
+            )
+        k += 2
+    return L, row
+
+
+def _transmission(bk, model, mc, u, fk, bd_mask, qpos, ten, need_length):
+    """(moment {dof: coef}, length) of actuator ``u`` (mj_transmission):
+    a hinge, slide or free joint, a tendon (``ten`` is the step's
+    (lengths, moments, velocities)) or a site without refsite, whose gear
+    is a 6D wrench in the site frame.  The length is built only when
+    ``need_length`` (affine or muscle gain and bias read it)."""
+    trn = TrnType(model.actuator_trntype[u])
+    if trn == TrnType.JOINT:
+        j = model.actuator_trnid[u]
+        vadr = model.jnt_dofadr[j]
+        if model.jnt_type[j] == JointType.FREE:
+            g6 = [float(x) for x in mc.actuator_gear[u]]
+            return {vadr + k: g6[k] for k in range(6) if g6[k] != 0.0}, 0.0
+        gear = float(mc.actuator_gear[u][0])
+        length = (mul(gear, qpos[model.jnt_qposadr[j]]) if need_length
+                  else 0.0)
+        return {vadr: gear}, length
+    if trn == TrnType.TENDON:
+        t = model.actuator_trnid[u]
+        gear = float(mc.actuator_gear[u][0])
+        ten_len, ten_mom, _ = ten
+        return ({vadr: mul(gear, m) for vadr, m in ten_mom[t].items()},
+                mul(gear, ten_len[t]) if need_length else 0.0)
+    s = model.actuator_trnid[u]
+    b = model.site_bodyid[s]
+    xpos, xmat = fk["xpos"], fk["xmat"]
+    spos = vadd3(xpos[b], mat_vec(xmat[b], tuple(mc.site_pos[s])))
+    smat = _mat_mul_const(xmat[b], quat_to_mat(tuple(mc.site_quat[s])))
+    g6 = [float(x) for x in mc.actuator_gear[u]]
+    wf = mat_vec(smat, (g6[0], g6[1], g6[2]))
+    wt = mat_vec(smat, (g6[3], g6[4], g6[5]))
+    arm = vsub3(spos, fk["subtree_com"][model.body_rootid[b]])
+    moment = {}
+    for dof in range(model.nv):
+        if not bd_mask[b, dof]:
+            continue
+        ang, lin = fk["cdof"][dof]
+        jacp = vadd3(lin, cross3(ang, arm))
+        moment[dof] = add(dot3(jacp, wf), dot3(ang, wt))
+    return moment, 0.0
 
 
 def _fk_chain(bk, model, mc, sub_mask, qpos, com: bool = True):
@@ -620,6 +1042,7 @@ def build_step(model: Model, bk):
                          f"{reason}")
     mc = _ModelConsts(model)
     nq, nv, nu, nbody = model.nq, model.nv, model.nu, model.nbody
+    na = model.na
     h = float(model.opt.timestep)
     gravity = tuple(float(g) for g in model.opt.gravity)
     if model.opt.disable_gravity:
@@ -671,8 +1094,8 @@ def build_step(model: Model, bk):
                     else s / L[(i, i)])
         return x
 
-    def forward_pass(qpos, qvel, warmstart, ctrl):
-        """Forward dynamics to qacc (no integration)."""
+    def forward_pass(qpos, qvel, act, warmstart, ctrl):
+        """Forward dynamics to qacc (no integration) and act_dot."""
         fk = _fk_chain(bk, model, mc, sub_mask, qpos)
         xpos, xquat, xmat, xipos = (fk["xpos"], fk["xquat"], fk["xmat"],
                                     fk["xipos"])
@@ -859,17 +1282,75 @@ def build_step(model: Model, bk):
             damp = mul(-float(mc.dof_damping[i]), qvel[i])
             qfrc_passive.append(add(spring, damp))
 
+        # tendon springs (dead-band) and dampers, fixed and spatial: the
+        # force maps through the tendon's moment row.  The tendon state is
+        # computed once here and read again by the transmissions and the
+        # constraint rows.
+        ten = _tendon_len_mom_sg(bk, model, mc, qpos, qvel, fk, bd_mask)
+        ten_len, ten_mom, ten_vel = ten
+        for t in range(model.ntendon):
+            stiff = float(mc.tendon_stiffness[t])
+            damp = float(mc.tendon_damping[t])
+            if stiff == 0.0 and damp == 0.0:
+                continue
+            lo, hi = (float(x) for x in mc.tendon_lengthspring[t])
+            L = ten_len[t]
+            disp = bk.where(L < lo, lo - L, bk.where(L > hi, hi - L, 0.0))
+            frc = sub(mul(stiff, disp), mul(damp, ten_vel[t]))
+            for vadr, coef in ten_mom[t].items():
+                qfrc_passive[vadr] = fma(qfrc_passive[vadr], coef, frc)
+
         qfrc_actuator = [0.0] * nv
+        act_dot = [0.0] * na
         for u in range(nu):
             c = ctrl[u]
             if model.actuator_ctrllimited[u]:
                 lo, hi = mc.actuator_ctrlrange[u]
                 c = bk.clip(c, float(lo), float(hi))
-            # joint transmission of a hinge/slide: moment = gear
-            j = model.actuator_trnid[u]
-            gear = float(mc.actuator_gear[u][0])
-            moment = {model.jnt_dofadr[j]: gear}
-            force = mul(float(mc.actuator_gainprm[u][0]), c)
+            gtype = GainType(model.actuator_gaintype[u])
+            btype = BiasType(model.actuator_biastype[u])
+            need_lv = gtype != GainType.FIXED or btype != BiasType.NONE
+            moment, length = _transmission(bk, model, mc, u, fk, bd_mask,
+                                           qpos, ten, need_lv)
+            velocity = _jdotv(moment, qvel) if need_lv else 0.0
+            # activation dynamics (mj_fwdActuation): a stateful actuator's
+            # force reads act; act_dot is integrated by the step
+            aadr = model.actuator_actadr[u]
+            if aadr >= 0:
+                a_u = act[aadr]
+                dyn = DynType(model.actuator_dyntype[u])
+                if dyn == DynType.INTEGRATOR:
+                    act_dot[aadr] = c
+                elif dyn == DynType.MUSCLE:
+                    act_dot[aadr] = muscle.muscle_dynamics(
+                        bk, c, a_u, mc.actuator_dynprm[u])
+                else:  # FILTER / FILTEREXACT
+                    tau = max(float(mc.actuator_dynprm[u][0]), 1e-15)
+                    act_dot[aadr] = mul(sub(c, a_u), 1.0 / tau)
+                force_input = a_u
+            else:
+                force_input = c
+            gp = [float(x) for x in mc.actuator_gainprm[u]]
+            if gtype == GainType.MUSCLE:
+                gain = muscle.muscle_gain(
+                    bk, length, velocity, mc.actuator_lengthrange[u],
+                    float(mc.actuator_acc0[u]), gp)
+            elif gtype == GainType.FIXED:
+                gain = gp[0]
+            else:
+                gain = add(add(gp[0], mul(gp[1], length)),
+                           mul(gp[2], velocity))
+            bp = [float(x) for x in mc.actuator_biasprm[u]]
+            if btype == BiasType.MUSCLE:
+                bias = muscle.muscle_bias(
+                    bk, length, mc.actuator_lengthrange[u],
+                    float(mc.actuator_acc0[u]), bp)
+            elif btype == BiasType.NONE:
+                bias = 0.0
+            else:
+                bias = add(add(bp[0], mul(bp[1], length)),
+                           mul(bp[2], velocity))
+            force = add(mul(gain, force_input), bias)
             if model.actuator_forcelimited[u]:
                 lo, hi = mc.actuator_forcerange[u]
                 force = bk.clip(force, float(lo), float(hi))
@@ -886,7 +1367,7 @@ def build_step(model: Model, bk):
 
         # ----------------- collision + efc assembly -----------------
         rows = _assemble_rows(bk, model, mc, qpos, qvel, xpos, xmat,
-                              subtree_com, cdof, bd_mask, h)
+                              subtree_com, cdof, bd_mask, h, ten)
 
         # ----------------- Newton solver -----------------
         qfrc_constraint = [0.0] * nv
@@ -901,7 +1382,8 @@ def build_step(model: Model, bk):
         else:
             qacc = qacc_smooth
         return dict(qacc=qacc, qfrc_smooth=qfrc_smooth,
-                    qfrc_constraint=qfrc_constraint, m_mat=m_mat)
+                    qfrc_constraint=qfrc_constraint, m_mat=m_mat,
+                    act_dot=act_dot)
 
     def integrate_pos_sg(qpos, qvel_new, dt):
         """mj_integratePos in scalar form (manifold update for quats)."""
@@ -927,11 +1409,32 @@ def build_step(model: Model, bk):
                 qpos_new[qadr + 3 + i] = q[i]
         return qpos_new
 
+    def advance_act_sg(act, act_dot, dt):
+        """mj_advance's act update: Euler for integrator, filter and
+        muscle, the exact exponential for filterexact, then the actrange
+        clamp."""
+        out = list(act)
+        for u in range(nu):
+            aadr = model.actuator_actadr[u]
+            if aadr < 0:
+                continue
+            if DynType(model.actuator_dyntype[u]) == DynType.FILTEREXACT:
+                tau = max(float(mc.actuator_dynprm[u][0]), 1e-15)
+                eff_dt = tau * -math.expm1(-dt / tau)
+            else:
+                eff_dt = dt
+            a = fma(act[aadr], eff_dt, act_dot[aadr])
+            if model.actuator_actlimited[u]:
+                lo, hi = mc.actuator_actrange[u]
+                a = bk.clip(a, float(lo), float(hi))
+            out[aadr] = a
+        return out
+
     if model.opt.integrator == Integrator.EULER:
 
         def step(qpos, qvel, act, warmstart, ctrl):
-            fw = forward_pass(list(qpos), list(qvel), list(warmstart),
-                              list(ctrl))
+            fw = forward_pass(list(qpos), list(qvel), list(act),
+                              list(warmstart), list(ctrl))
             # semi-implicit Euler with implicit joint damping (mj_Euler)
             if model.any_damping and not model.opt.disable_eulerdamp:
                 damp = [h * float(mc.dof_damping[i]) for i in range(nv)]
@@ -946,15 +1449,18 @@ def build_step(model: Model, bk):
                 qvel_new = [add(qvel[i], mul(h, fw["qacc"][i]))
                             for i in range(nv)]
             qpos_new = integrate_pos_sg(qpos, qvel_new, h)
-            return qpos_new, qvel_new, list(act), list(fw["qacc"])
+            act_new = advance_act_sg(act, fw["act_dot"], h)
+            return qpos_new, qvel_new, act_new, list(fw["qacc"])
 
     else:  # RK4 (mj_RungeKutta, N=4): 4 chained forward passes
 
         def step(qpos, qvel, act, warmstart, ctrl):
-            qpos, qvel, ctrl = list(qpos), list(qvel), list(ctrl)
-            fw = forward_pass(qpos, qvel, list(warmstart), ctrl)
+            qpos, qvel, act = list(qpos), list(qvel), list(act)
+            ctrl = list(ctrl)
+            fw = forward_pass(qpos, qvel, act, list(warmstart), ctrl)
             vels = [qvel]
             accs = [fw["qacc"]]
+            adots = [fw["act_dot"]]
             A = ((0.5, 0.0, 0.0), (0.0, 0.5, 0.0), (0.0, 0.0, 1.0))
             B = (1.0 / 6.0, 1.0 / 3.0, 1.0 / 3.0, 1.0 / 6.0)
             for i in range(3):
@@ -964,19 +1470,30 @@ def build_step(model: Model, bk):
                 dv = [sum_scalars([mul(A[i][j], accs[j][k])
                                    for j in range(i + 1)])
                       for k in range(nv)]
+                da = [sum_scalars([mul(A[i][j], adots[j][k])
+                                   for j in range(i + 1)])
+                      for k in range(na)]
                 qpos_i = integrate_pos_sg(qpos, dq, h)
                 qvel_i = [add(qvel[k], mul(h, dv[k])) for k in range(nv)]
+                act_i = [add(act[k], mul(h, da[k])) for k in range(na)]
                 # each stage warm-starts from the previous stage's qacc
-                fw = forward_pass(qpos_i, qvel_i, list(fw["qacc"]), ctrl)
+                fw = forward_pass(qpos_i, qvel_i, act_i, list(fw["qacc"]),
+                                  ctrl)
                 vels.append(qvel_i)
                 accs.append(fw["qacc"])
+                adots.append(fw["act_dot"])
             dq = [sum_scalars([mul(B[j], vels[j][k]) for j in range(4)])
                   for k in range(nv)]
             dv = [sum_scalars([mul(B[j], accs[j][k]) for j in range(4)])
                   for k in range(nv)]
+            da = [sum_scalars([mul(B[j], adots[j][k]) for j in range(4)])
+                  for k in range(na)]
             qpos_new = integrate_pos_sg(qpos, dq, h)
             qvel_new = [add(qvel[k], mul(h, dv[k])) for k in range(nv)]
-            return qpos_new, qvel_new, list(act), list(fw["qacc"])
+            # the final act update goes through mj_advance (the exact
+            # filter update with the RK-weighted derivative, the clamp)
+            act_new = advance_act_sg(act, da, h)
+            return qpos_new, qvel_new, act_new, list(fw["qacc"])
 
     return step
 
@@ -1007,6 +1524,16 @@ def build_fk(model: Model, bk):
 # ---------------------------------------------------------------------------
 # constraint rows + Newton (scalar-graph form)
 # ---------------------------------------------------------------------------
+
+
+def _kbi_zero_pos(solref, solimp, h):
+    """(b, imp) python constants for rows whose pos is identically 0
+    (friction rows, whose aref has no stiffness term): x = 0 puts the
+    impedance at dmin."""
+    dmin = min(max(float(solimp[0]), 0.0001), 0.9999)
+    dmax = min(max(float(solimp[1]), 0.0001), 0.9999)
+    tc = max(float(solref[0]), 2.0 * h)
+    return 2.0 / (dmax * tc), dmin
 
 
 def _kbi_const(bk, solref, solimp, pos, h):
@@ -1040,11 +1567,43 @@ def _kbi_const(bk, solref, solimp, pos, h):
 
 
 def _assemble_rows(bk, model, mc, qpos, qvel, xpos, xmat, subtree_com, cdof,
-                   bd_mask, h):
-    """Joint-limit and contact rows as dicts with a sparse J (MuJoCo row
-    order: joint limits, then contacts).  All rows are unilateral: the
-    force is max(-D jar, 0) on existing rows."""
+                   bd_mask, h, ten):
+    """Friction-loss, limit and contact rows as dicts with a sparse J, in
+    MuJoCo's row order: dof friction, tendon friction, joint limits,
+    tendon limits, contacts.  ``ten`` is the step's tendon (lengths,
+    moments, velocities).  Row kinds:
+
+    * ``uni`` (limits, pyramid facets): f = max(-D jar, 0) on existing rows;
+    * ``fri`` (friction loss, box-bounded): f = clip(-D jar, -floss, floss).
+    """
     rows = []
+    ten_len, ten_mom, ten_vel = ten
+
+    # dof friction loss (mjCNSTR_FRICTION_DOF): pos = 0 is a build-time
+    # constant, so the impedance folds to dmin
+    if not model.opt.disable_frictionloss:
+        for i in range(model.nv):
+            floss = float(mc.dof_frictionloss[i])
+            if floss <= 0:
+                continue
+            b, imp = _kbi_zero_pos(mc.dof_solref[i], mc.dof_solimp[i], h)
+            aref = mul(-b, qvel[i])
+            dcoef = imp / (1.0 - imp) / max(float(mc.dof_invweight0[i]),
+                                            1e-12)
+            rows.append(dict(J={i: 1.0}, pos=0.0, aref=aref, D=dcoef,
+                             exists=True, kind="fri", floss=floss))
+        # tendon friction loss (mjCNSTR_FRICTION_TENDON)
+        for t in range(model.ntendon):
+            floss = float(mc.tendon_frictionloss[t])
+            if floss <= 0:
+                continue
+            b, imp = _kbi_zero_pos(mc.tendon_solref_fri[t],
+                                   mc.tendon_solimp_fri[t], h)
+            aref = mul(-b, ten_vel[t])
+            dcoef = imp / (1.0 - imp) / max(
+                float(mc.tendon_invweight0[t]), 1e-12)
+            rows.append(dict(J=dict(ten_mom[t]), pos=0.0, aref=aref,
+                             D=dcoef, exists=True, kind="fri", floss=floss))
 
     # scalar joint limits
     for j in range(model.njnt):
@@ -1069,7 +1628,32 @@ def _assemble_rows(bk, model, mc, qpos, qvel, xpos, xmat, subtree_com, cdof,
         dcoef = imp / (1.0 - imp) / max(float(mc.dof_invweight0[vadr]),
                                         1e-12)
         rows.append(dict(J={vadr: sign}, pos=pos, aref=aref, D=dcoef,
-                         exists=exists))
+                         exists=exists, kind="uni"))
+
+    # tendon limits (mjCNSTR_LIMIT_TENDON): joint-limit rows on the tendon
+    # length, J = +-moment row
+    if not model.opt.disable_limit:
+        for t in range(model.ntendon):
+            if not model.tendon_limited[t]:
+                continue
+            lo, hi = (float(x) for x in mc.tendon_range[t])
+            margin = float(mc.tendon_margin[t])
+            L = ten_len[t]
+            dist_lo = L - lo
+            dist_hi = hi - L
+            dist = bk.minimum(dist_lo, dist_hi)
+            sign = bk.where(dist_lo < dist_hi, 1.0, -1.0)
+            exists = dist < margin
+            pos = bk.where(exists, dist - margin, 0.0)
+            k, b, imp = _kbi_const(bk, mc.tendon_solref_lim[t],
+                                   mc.tendon_solimp_lim[t], pos, h)
+            vel = mul(sign, ten_vel[t])
+            aref = -b * vel - k * imp * pos
+            dcoef = imp / (1.0 - imp) / max(
+                float(mc.tendon_invweight0[t]), 1e-12)
+            J = {dof: mul(sign, m) for dof, m in ten_mom[t].items()}
+            rows.append(dict(J=J, pos=pos, aref=aref, D=dcoef,
+                             exists=exists, kind="uni"))
 
     # contacts: static pair table; per pair type a closed-form scalar
     # narrowphase yields a fixed number of (dist, pos, normal, t1|None)
@@ -1113,7 +1697,7 @@ def _assemble_rows(bk, model, mc, qpos, qvel, xpos, xmat, subtree_com, cdof,
                     aref = -b_ * vel - k * imp * posr
                     rows.append(dict(J=jn, pos=posr, aref=aref,
                                      D=dapn / max(iw, 1e-12),
-                                     exists=exists))
+                                     exists=exists, kind="uni"))
                 else:
                     # pyramidal facets of the 2 tangent directions; the
                     # diagApprox of every facet uses friction[0]
@@ -1133,7 +1717,7 @@ def _assemble_rows(bk, model, mc, qpos, qvel, xpos, xmat, subtree_com, cdof,
                             aref = -b_ * vel - k * imp * posr
                             rows.append(dict(J=J, pos=posr, aref=aref,
                                              D=dapn / max(dap, 1e-12),
-                                             exists=exists))
+                                             exists=exists, kind="uni"))
                 lane += 1
     return rows
 
@@ -1146,6 +1730,7 @@ def _np_contacts_sg(bk, model, mc, ta, tb, g1, g2, xpos, xmat):
     m1 = _geom_mat(model, mc, g1, xmat)
     p2 = _geom_pos(model, mc, g2, xpos, xmat)
     m2 = _geom_mat(model, mc, g2, xmat)
+    s1 = [float(x) for x in mc.geom_size[g1]]
     s2 = [float(x) for x in mc.geom_size[g2]]
 
     if ta == GeomType.PLANE and tb == GeomType.SPHERE:
@@ -1178,9 +1763,26 @@ def _np_contacts_sg(bk, model, mc, ta, tb, g1, g2, xpos, xmat):
             out.append((dist, pos, n, t1u))
         return out
 
+    if ta == GeomType.SPHERE and tb == GeomType.SPHERE:
+        dist, pos, n = _np_sphere_sphere_sg(bk, p1, s1[0], p2, s2[0])
+        return [(dist, pos, n, None)]
+
     raise ValueError(
         f"pair type {ta.name}-{tb.name} not in the port's scalar-graph class"
     )
+
+
+def _np_sphere_sphere_sg(bk, p1, r1, p2, r2):
+    """collision._sphere_sphere_raw in scalar form: (dist, pos, normal)."""
+    delta = vsub3(p2, p1)
+    d = bk.sqrt(bk.maximum(dot3(delta, delta), 0.0))
+    good = d > 1e-12
+    safe = bk.where(good, d, 1.0)
+    fallback = (0.0, 0.0, 1.0)
+    n = tuple(bk.where(good, delta[i] / safe, fallback[i]) for i in range(3))
+    dist = sub(d, r1 + r2)
+    pos = vadd3(p1, vscale3(n, add(r1, mul(0.5, dist))))
+    return dist, pos, n
 
 
 def _lane_to_pair(model, lane):
@@ -1257,8 +1859,16 @@ def _jdotv(jrow, qvel):
 
 
 def _row_force_act(bk, r, jar_r):
-    """(force, active mask) of one unilateral row at residual ``jar_r``:
-    f = max(-D jar, 0) on existing rows."""
+    """(force, quadratic-zone mask) of one row at residual ``jar_r``.
+
+    uni: f = max(-D jar, 0) on existing rows;
+    fri: f = clip(-D jar, -floss, floss) -- the quadratic zone is
+    |D jar| < floss, outside it the cost is linear (MuJoCo's friction-row
+    Huber cost)."""
+    if r.get("kind") == "fri":
+        fl = r["floss"]
+        g = r["D"] * jar_r
+        return bk.clip(-g, -fl, fl), bk.abs(g) < fl
     act = r["exists"] & (jar_r < 0)
     return bk.where(act, -r["D"] * jar_r, 0.0), act
 
@@ -1272,12 +1882,22 @@ def _dphi_stacked(bk, rows, jar, jp, d0, sg):
     jar_s, jp_s = st(jar), st(jp)
     neg_d = st([-r["D"] for r in rows])
     exists = st([r["exists"] for r in rows])
+    fri = [r.get("kind") == "fri" for r in rows]
+    if any(fri):
+        # a friction row's clip(-(D jar), -fl, fl): -(D jar) == (-D) jar
+        # bit for bit, so both kinds share neg_d * jar_a
+        # built on the device: the plain step may be under graph capture
+        is_fri = st(fri)
+        fl = st([r["floss"] if f else 0.0 for r, f in zip(rows, fri)])
 
     def dphi(alpha):
         s = d0 + alpha * sg
         jar_a = jar_s + alpha * jp_s
         act = exists & (jar_a < 0)
-        f_a = torch.where(act, neg_d * jar_a, torch.zeros_like(jar_a))
+        g = neg_d * jar_a
+        f_a = torch.where(act, g, torch.zeros_like(jar_a))
+        if any(fri):
+            f_a = torch.where(is_fri, torch.clamp(g, -fl, fl), f_a)
         df = f_a * jp_s
         for i in range(len(rows)):
             s = s - df[i]
@@ -1287,6 +1907,12 @@ def _dphi_stacked(bk, rows, jar, jp, d0, sg):
 
 
 def _row_cost(bk, r, jar_r):
+    if r.get("kind") == "fri":
+        fl = r["floss"]
+        g = r["D"] * jar_r
+        quad = 0.5 * r["D"] * jar_r * jar_r
+        lin = fl * bk.abs(jar_r) - 0.5 * fl * fl / r["D"]
+        return bk.where(bk.abs(g) < fl, quad, lin)
     act = r["exists"] & (jar_r < 0)
     return bk.where(act, 0.5 * r["D"] * jar_r * jar_r, 0.0)
 

@@ -3,9 +3,11 @@
 The emitted model header -- the same source the card compiles -- is built
 here by g++ in double and held against the torch backend (the plain
 version): the Euler step (hopper, cheetah), the RK4 step (cartpole), the
-free joint (the sphere) and walker's reward, which reads the FK.  Its
-float form is checked for stray double literals and for the
-Newton/line-search loops that keep it small.
+free joint (the sphere), the muscle on a wrapped spatial tendon (the arm),
+fixed tendons with friction loss and limits, stateful actuators, and
+walker's reward, which reads the FK.  Its float form is checked for stray
+double literals and for the Newton/line-search and wrap-search loops that
+keep it small.
 """
 
 import ctypes
@@ -19,6 +21,7 @@ import torch
 
 from test_megakernel import _XML as HOPPER_XML
 from test_torch_scalar_graph import FREE_SPHERE, SPINS
+from test_torch_tendon import XMLS as TENDON_XMLS
 
 from oxide_control_torch.mjcf.compile import load_model_from_xml
 from oxide_control_torch import suite
@@ -35,6 +38,13 @@ def _model(name):
         return load_model_from_xml(HOPPER_XML)
     if name == "free_sphere":
         return load_model_from_xml(FREE_SPHERE.format(stiffness=0.0))
+    if name in TENDON_XMLS:
+        return load_model_from_xml(TENDON_XMLS[name])
+    if name == "arm_side_lower":  # the sidesite on another body
+        return load_model_from_xml(TENDON_XMLS["arm"].replace(
+            '<site name="pside" pos="0.3 0 0.08"/>', "").replace(
+            '<site name="tip"', '<site name="pside" pos="0.01 0 0.02"/>'
+            '<site name="tip"'))
     return load_asset(name)
 
 
@@ -74,12 +84,13 @@ def _gxx_step(m, tmp_path):
     """The emitted model header in double, wrapped in a host loop over
     envs and built by g++ into a ctypes library."""
     src = mk.kernel_source(m, _hooks(m), "double").text + r"""
-extern "C" void step_batch(const double* q, const double* v, const double* w,
-                           const double* c, double* qo, double* vo,
-                           double* wo, int n) {
+extern "C" void step_batch(const double* q, const double* v, const double* a,
+                           const double* w, const double* c, double* qo,
+                           double* vo, double* ao, double* wo, int n) {
   for (int b = 0; b < n; ++b)
-    oxc_step(q + b * OXC_NQ, v + b * OXC_NV, w + b * OXC_NV, c + b * OXC_NU,
-             qo + b * OXC_NQ, vo + b * OXC_NV, wo + b * OXC_NV);
+    oxc_step(q + b * OXC_NQ, v + b * OXC_NV, a + b * OXC_NA, w + b * OXC_NV,
+             c + b * OXC_NU, qo + b * OXC_NQ, vo + b * OXC_NV,
+             ao + b * OXC_NA, wo + b * OXC_NV);
 }
 """
     return _gxx(src, tmp_path)
@@ -98,27 +109,33 @@ def _gxx(src, tmp_path):
 
 @pytest.mark.parametrize("name,nsteps", [
     ("hopper", 10), ("cheetah", 5), ("cartpole", 10), ("free_sphere", 10),
+    ("arm", 10), ("tendon_frictionloss", 10), ("stateful", 10),
 ])
 def test_emitted_body_matches_torch_backend(name, nsteps, tmp_path):
     """g++ -O1 builds the cheetah body in about 4 s on this class of CPU,
-    so the models run through it."""
+    so the models run through it; act is compared where the model has
+    activations."""
     m = _model(name)
     lib, _ = _gxx_step(m, tmp_path)
     qpos, qvel, ws, ctrl = _inputs(m, seed=1)
     b = len(qpos)
+    act = np.random.default_rng(3).uniform(0.0, 0.4, (b, m.na))
     step = sg.build_step(m, sg.TorchBackend(b, torch.float64, "cpu"))
-    q, v, w, c = _cols(qpos), _cols(qvel), _cols(ws), _cols(ctrl)
-    cq, cv, cw, cc = (np.ascontiguousarray(a) for a in (qpos, qvel, ws, ctrl))
-    ptr = lambda a: a.ctypes.data_as(ctypes.c_void_p)
+    q, v, a, w, c = (_cols(x) for x in (qpos, qvel, act, ws, ctrl))
+    cq, cv, ca, cw, cc = (np.ascontiguousarray(x)
+                          for x in (qpos, qvel, act, ws, ctrl))
+    ptr = lambda x: x.ctypes.data_as(ctypes.c_void_p)
     for _ in range(nsteps):
-        q, v, _, w = step(q, v, [], w, c)
-        qo, vo, wo = np.zeros_like(cq), np.zeros_like(cv), np.zeros_like(cw)
-        lib.step_batch(ptr(cq), ptr(cv), ptr(cw), ptr(cc), ptr(qo), ptr(vo),
-                       ptr(wo), ctypes.c_int(b))
-        cq, cv, cw = qo, vo, wo
+        q, v, a, w = step(q, v, a, w, c)
+        qo, vo, ao, wo = (np.zeros_like(x) for x in (cq, cv, ca, cw))
+        lib.step_batch(ptr(cq), ptr(cv), ptr(ca), ptr(cw), ptr(cc), ptr(qo),
+                       ptr(vo), ptr(ao), ptr(wo), ctypes.c_int(b))
+        cq, cv, ca, cw = qo, vo, ao, wo
         np.testing.assert_allclose(cq, _stack(q), rtol=0, atol=1e-9)
         np.testing.assert_allclose(cv, _stack(v), rtol=0, atol=1e-9)
         np.testing.assert_allclose(cw, _stack(w), rtol=0, atol=1e-9)
+        if m.na:
+            np.testing.assert_allclose(ca, _stack(a), rtol=0, atol=1e-9)
 
 
 def test_emitted_fk_reward_matches_torch_backend(tmp_path):
@@ -179,6 +196,24 @@ def test_newton_and_linesearch_are_loops():
     assert re.search(r"< 12; \+\+i", src) and re.search(r"< 26; \+\+i", src)
     n_stmt = src.count("const ")
     assert em.ops > 5 * n_stmt  # loops: far more work than source
+
+
+def test_wrap_search_is_loops():
+    """The inside-sidesite wrap search -- 31 more tournament angles and 60
+    golden-section steps -- is two C loops in the emitted step where the
+    sidesite may lie inside the sphere (moved to the lower arm, it is
+    tested per lane), and is not emitted for the bench's arm, whose
+    sidesite sits outside the sphere on the sphere's own body."""
+    for name, searched in (("arm_side_lower", True), ("arm", False)):
+        m = _model(name)
+        em = Emitter("float")
+        step = sg.build_step(m, em)
+        step(em.load("q", m.nq), em.load("v", m.nv), em.load("a", m.na),
+             em.load("w", m.nv), em.load("c", m.nu))
+        src = "\n".join(em._lines)
+        loops = [bool(re.search(r"< %d; \+\+i" % n, src)) for n in (31, 60)]
+        assert loops == [searched, searched], name
+        assert len(em._lines) < 2000
 
 
 @pytest.mark.parametrize("lit,want", [

@@ -72,7 +72,9 @@ def test_import_leaves_jax_out():
         "import sys, oxide_control_torch, oxide_control_torch.suite, "
         "oxide_control_torch.suite.rewards, "
         "oxide_control_torch.parallel.rollout, oxide_control_torch.convert, "
-        "oxide_control_torch.ops.emit, oxide_control_torch.ops.build\n"
+        "oxide_control_torch.ops.emit, oxide_control_torch.ops.build, "
+        "oxide_control_torch.bench_configs, "
+        "oxide_control_torch.physics.muscle\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('oxide_control_tpu')]\n"
         "assert not bad, bad\n"
@@ -106,28 +108,57 @@ _BALL = """
   </worldbody>
 </mujoco>
 """
-_FREE_MOTOR = """
+_TWO_LINKS = """
 <mujoco>
+  <option {opt}/>
   <worldbody>
-    <body name="ball" pos="0 0 1">
-      <joint name="root" type="free"/>
-      <geom type="sphere" size="0.1"/>
+    <geom name="floor" type="plane" size="5 5 .1"/>
+    <body name="a" pos="0 0 1" {mocap}>
+      <joint name="h1" type="hinge" axis="0 1 0"/>
+      <geom type="{geom}" size="0.1 0.1 0.1"/>
+      <site name="s1" pos="0.1 0 0"/>
+      <body name="b" pos="0.3 0 0">
+        <joint name="h2" type="hinge" axis="0 1 0"/>
+        <geom type="capsule" size="0.05" fromto="0 0 0 0.2 0 0"/>
+        <site name="s2" pos="0.2 0 0"/>
+      </body>
     </body>
   </worldbody>
-  <actuator><motor joint="root" gear="1 0 0 0 0 0"/></actuator>
+  {extra}
 </mujoco>
 """
+
+
+def _two_links(opt="", mocap="", geom="sphere", extra=""):
+    return _TWO_LINKS.format(opt=opt, mocap=mocap, geom=geom, extra=extra)
+
+
+_REFUSED = dict(
+    ball=_BALL,
+    equality=_two_links(extra='<equality><joint joint1="h1" joint2="h2"/>'
+                        '</equality>'),
+    elliptic=_two_links(opt='cone="elliptic"'),
+    box_pair=_two_links(geom="box"),
+    fluid=_two_links(opt='density="1.2"'),
+    refsite=_two_links(extra='<actuator><general site="s2" refsite="s1" '
+                       'gear="1 0 0 0 0 0"/></actuator>'),
+    mocap=_two_links().replace(
+        "</worldbody>", '<body name="m" mocap="true"><geom type="sphere" '
+        'size="0.05" contype="0" conaffinity="0"/></body></worldbody>'),
+)
 _IMPLICIT = HOPPER_XML.replace('<option timestep="0.01"',
                                '<option integrator="implicit" '
                                'timestep="0.01"')
 
 
 @pytest.mark.parametrize("name,row", [
-    ("ball", "Queue A item 10"), ("free_motor", "Queue A item 10.1"),
-    ("implicit", "Queue A item 11"),
+    ("ball", "Queue A item 10"), ("equality", "Queue A item 10.2"),
+    ("implicit", "Queue A item 11"), ("elliptic", "Queue A item 10.4"),
+    ("box_pair", "Queue A item 10.3"), ("fluid", "Queue A item 10.6"),
+    ("mocap", "Queue A item 10.8"), ("refsite", "Queue A item 11"),
 ])
 def test_unsupported_models_name_their_roadmap_row(name, row):
-    xml = dict(ball=_BALL, free_motor=_FREE_MOTOR, implicit=_IMPLICIT)[name]
+    xml = dict(_REFUSED, implicit=_IMPLICIT)[name]
     reason = sg.unsupported_reason(load_model_from_xml(xml))
     assert reason is not None and row in reason
 

@@ -157,12 +157,16 @@ def test_quat_helpers_match_reference(fn):
 def test_stacked_dphi_is_bit_identical_to_per_row(dtype):
     """The torch backend's line-search derivative over (rows, B) stacks
     equals the per-row form the emitter writes, bit for bit, with constant
-    and tensor coefficients mixed as the contact and limit rows give them."""
+    and tensor coefficients mixed as the contact and limit rows give them,
+    and friction-loss rows (box-bounded force) among them."""
     rng = np.random.default_rng(5)
     bk = sg.TorchBackend(B, dtype, "cpu")
     T = lambda *shape: torch.tensor(rng.normal(size=shape), dtype=dtype)
     rows = [dict(D=T(B) if i % 3 else 0.75,
                  exists=(T(B) > 0) if i % 4 else True) for i in range(9)]
+    rows[2:2] = [dict(D=0.75, exists=True, kind="fri", floss=0.3),
+                 dict(D=T(B).abs(), exists=True, kind="fri", floss=0.05)]
+    rows.append(dict(D=2.5, exists=True, kind="fri", floss=1.0))
     jar = [T(B) for _ in rows]
     jp = [T(B) if i != 4 else 0.0 for i in range(len(rows))]
     d0, slope = T(B), T(B)
