@@ -1,14 +1,15 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: ``python3 chip_smoke.py``.
 
 Drives the port's main path -- ``FastRollout`` through the hand-written
-CUDA rollout kernel on seven rows of the reference bench: cheetah-run@4096
+CUDA rollout kernel on nine rows of the reference bench: cheetah-run@4096
 and walker-walk@4096 (K = 200), cartpole-swingup@1024 (K = 200, RK4),
-arm-muscle-wrap@4096 (K = 200: a muscle on a spatial tendon wrapping a
-sphere, ``oxide_control_torch.bench_configs``), humanoid-run@8192 (K = 100,
-free root joint) with uniform ctrl, and the in-kernel (64, 64) policy
-collecting trajectories on cheetah (K = 200) and humanoid (K = 100) --
-after building every kernel from the sources in this checkout and holding
-each against its plain PyTorch version.
+arm-muscle-wrap@4096, fourbar-equality@4096 (connect and joint
+equalities, eq_active lanes) and arms-self-collide@4096 (capsule and
+sphere pairs), all K = 200 from ``oxide_control_torch.bench_configs``,
+humanoid-run@8192 (K = 100, free root joint) with uniform ctrl, and the
+in-kernel (64, 64) policy collecting trajectories on cheetah (K = 200)
+and humanoid (K = 100) -- after building every kernel from the sources in
+this checkout and holding each against its plain PyTorch version.
 Phases, each fatal on failure:
 
 1. device: the card's name and power limit;
@@ -27,12 +28,15 @@ Phases, each fatal on failure:
    the kernel's launch count set to 0 before and read after those calls;
 7. the kernels line (JSON) and the last line (JSON).
 
-Parity runs each main-path row at its own B and K; three models without a
+Parity runs each main-path row at its own B and K; models without a
 bench row at K = 200: pendulum-swingup@1024, walker-walk-tendon@4096
-(walker with a fixed knee tendon carrying friction loss) and
-stateful-actuators@1024 (filter, filterexact and integrator actuators);
-and the two options off the main path (exploration noise, Gaussian reset
-noise) at K = 24.
+(walker with a fixed knee tendon carrying friction loss),
+stateful-actuators@1024 (filter, filterexact and integrator actuators),
+fourbar eq-toggle@4096 (the connect off on every other env through
+eq_active), weld@1024, tendon-equality@1024, box-pairs@1024,
+plane-box-cyl-ellipsoid@1024 and box-stack@1024 (box-box SAT); and the
+two options off the main path (exploration noise, Gaussian reset noise)
+at K = 24.
 
 Needs one CUDA card; exits non-zero without one.
 """
@@ -51,6 +55,7 @@ import torch
 from oxide_control_torch import bench_configs, suite
 from oxide_control_torch.api.environment import BatchedEnvironment
 from oxide_control_torch.mjcf.compile import load_model_from_xml
+from oxide_control_torch.model import JointType
 from oxide_control_torch.ops import megakernel as mk
 from oxide_control_torch.parallel.rollout import FastRollout
 from oxide_control_torch.policy import MLPPolicy
@@ -95,6 +100,158 @@ WALKER_TENDON = """
 </mujoco>"""
 
 
+# parity models of the equality and narrowphase pairs, run with the bench
+# task: the reference tests' models (tests/test_scalar_graph.py:318-339,
+# the weld, with the ball-jointed blob on a free joint, since ball joints
+# are not ported yet; :703-732, :387-419, :740-785 and :926-957)
+WELD_XML = """
+    <mujoco>
+      <option solver="Newton" iterations="10" tolerance="0"/>
+      <worldbody>
+        <body pos="0 0 1">
+          <joint name="a1" type="hinge" axis="0 1 0" damping="0.1"/>
+          <geom type="capsule" fromto="0 0 0 0.3 0 0" size="0.03" mass="0.5"/>
+          <body name="tip" pos="0.3 0 0">
+            <joint name="a2" type="hinge" axis="1 0 0" damping="0.1"/>
+            <geom type="sphere" size="0.04" mass="0.2"/>
+          </body>
+        </body>
+        <body name="blob" pos="0.3 0 1">
+          <freejoint/>
+          <geom type="sphere" size="0.05" mass="0.3" contype="0"
+                conaffinity="0"/>
+        </body>
+      </worldbody>
+      <equality><weld body1="tip" body2="blob"/></equality>
+      <actuator><motor joint="a1" gear="1"/></actuator>
+    </mujoco>
+    """
+TENDON_EQ_XML = """
+    <mujoco>
+      <option solver="Newton" iterations="10" tolerance="0"/>
+      <worldbody>
+        <geom name="floor" type="plane" size="5 5 .1"/>
+        <body pos="0 0 0.6">
+          <joint name="h1" type="hinge" axis="0 1 0" damping="0.1"/>
+          <geom type="capsule" fromto="0 0 0 0.3 0 0" size="0.04" mass="1"/>
+          <body pos="0.3 0 0">
+            <joint name="h2" type="hinge" axis="0 1 0" damping="0.1"/>
+            <geom type="sphere" size="0.05" mass="0.4"/>
+          </body>
+        </body>
+        <body pos="0.8 0 0.6">
+          <joint name="h3" type="hinge" axis="0 1 0" damping="0.05"/>
+          <geom type="capsule" fromto="0 0 0 0.2 0 0" size="0.03"
+                mass="0.5"/>
+        </body>
+      </worldbody>
+      <tendon>
+        <fixed name="tA">
+          <joint joint="h1" coef="0.7"/><joint joint="h2" coef="-0.4"/>
+        </fixed>
+        <fixed name="tB"><joint joint="h3" coef="1.0"/></fixed>
+      </tendon>
+      <equality>
+        <tendon tendon1="tA" tendon2="tB" polycoef="0 0.8 0.2 0 0"/>
+      </equality>
+      <actuator><motor joint="h1" gear="1"/></actuator>
+    </mujoco>
+    """
+BOX_PAIRS_XML = """
+    <mujoco>
+      <option solver="Newton" iterations="8" tolerance="0"/>
+      <worldbody>
+        <body name="obstacle" pos="0.3 0 0.18">
+          <joint name="bz" type="slide" axis="0 0 1" damping="0.5"/>
+          <geom name="block" type="box" size="0.12 0.2 0.12" mass="2"/>
+        </body>
+        <body pos="0 0 0.42">
+          <joint name="s1" type="hinge" axis="0 1 0" damping="0.05"/>
+          <geom name="arm" type="capsule" fromto="0 0 0 0.4 0 0"
+                size="0.05" mass="1"/>
+          <geom name="tip" type="sphere" pos="0.47 0 0" size="0.06"
+                mass="0.2"/>
+        </body>
+      </worldbody>
+      <actuator><motor joint="s1" gear="2"/></actuator>
+    </mujoco>
+    """
+PLANE_SHAPES_XML = """
+    <mujoco>
+      <option solver="Newton" iterations="10" tolerance="0"/>
+      <worldbody>
+        <geom name="floor" type="plane" size="5 5 .1" contype="1"
+              conaffinity="2"/>
+        <body pos="0 0 0.35">
+          <joint name="h1" type="hinge" axis="0 1 0" damping="0.1"/>
+          <joint name="s1" type="slide" axis="0 0 1" damping="0.1"/>
+          <geom name="bx" type="box" size="0.12 0.1 0.08" mass="1"
+                contype="2" conaffinity="1"/>
+        </body>
+        <body pos="0.6 0 0.3">
+          <joint name="h2" type="hinge" axis="1 0 0" damping="0.1"/>
+          <geom name="cyl" type="cylinder" size="0.08 0.12" mass="0.5"
+                contype="2" conaffinity="1"/>
+        </body>
+        <body pos="1.2 0 0.3">
+          <joint name="h3" type="hinge" axis="0 1 0" damping="0.1"/>
+          <geom name="ell" type="ellipsoid" size="0.12 0.09 0.06"
+                mass="0.4" contype="2" conaffinity="1"/>
+        </body>
+      </worldbody>
+      <actuator>
+        <motor joint="h1" gear="2"/><motor joint="h2" gear="2"/>
+        <motor joint="h3" gear="2"/>
+      </actuator>
+    </mujoco>
+    """
+BOX_STACK_XML = """
+    <mujoco>
+      <option timestep="0.005" solver="Newton" iterations="12"
+              tolerance="0"/>
+      <worldbody>
+        <geom name="floor" type="plane" size="5 5 .1"/>
+        <body name="b1" pos="0 0 0.1">
+          <freejoint/>
+          <geom name="g1" type="box" size="0.1 0.12 0.1" mass="1"/>
+        </body>
+        <body name="b2" pos="0.03 0.02 0.31">
+          <freejoint/>
+          <geom name="g2" type="box" size="0.08 0.07 0.1" mass="0.6"/>
+        </body>
+      </worldbody>
+    </mujoco>
+    """
+
+
+class QuatSafeBenchTask(bench_configs.BenchTask):
+    """The bench task without reset noise on quaternion coordinates (a
+    free joint's orientation resets to qpos0's)."""
+
+    def _mask(self, model):
+        mask = [1.0] * model.nq
+        for j in range(model.njnt):
+            if model.jnt_type[j] == JointType.FREE:
+                adr = model.jnt_qposadr[j]
+                mask[adr + 3:adr + 7] = [0.0] * 4
+        return mask
+
+    def init_episode(self, model, data, generator):
+        out = super().init_episode(model, data, generator)
+        m = torch.tensor(self._mask(model), dtype=data.qpos.dtype,
+                         device=data.qpos.device)
+        return out.replace(qpos=data.qpos + m * (out.qpos - data.qpos))
+
+    def kernel_hooks(self, model):
+        return dataclasses.replace(super().kernel_hooks(model),
+                                   reset_mask=self._mask(model))
+
+
+def bench_env(xml, batch, device=None):
+    return BatchedEnvironment(load_model_from_xml(xml, np.float32),
+                              QuatSafeBenchTask(), batch, device=device)
+
+
 def walker_tendon_env(batch, device=None):
     with open(asset_path("walker")) as f:
         xml = f.read().replace("</mujoco>", WALKER_TENDON)
@@ -103,8 +260,7 @@ def walker_tendon_env(batch, device=None):
 
 
 def stateful_env(batch, device=None):
-    return BatchedEnvironment(load_model_from_xml(STATEFUL_XML, np.float32),
-                              bench_configs.BenchTask(), batch, device=device)
+    return bench_env(STATEFUL_XML, batch, device)
 
 
 # the environments at their batches (the reference bench's, bench.py:67-98)
@@ -118,8 +274,17 @@ ENVS = {
     "humanoid/run": lambda: suite.load_batched("humanoid", "run", 8192),
     "arm/muscle-wrap": lambda: bench_configs.load_config("arm", "muscle-wrap",
                                                          4096),
+    "fourbar/equality": lambda: bench_configs.load_config(
+        "fourbar", "equality", 4096),
+    "arms/self-collide": lambda: bench_configs.load_config(
+        "arms", "self-collide", 4096),
     "walker/walk-tendon": lambda: walker_tendon_env(4096),
     "stateful/actuators": lambda: stateful_env(1024),
+    "weld": lambda: bench_env(WELD_XML, 1024),
+    "tendon-equality": lambda: bench_env(TENDON_EQ_XML, 1024),
+    "box-pairs": lambda: bench_env(BOX_PAIRS_XML, 1024),
+    "plane-shapes": lambda: bench_env(PLANE_SHAPES_XML, 1024),
+    "box-stack": lambda: bench_env(BOX_STACK_XML, 1024),
 }
 # the main path's rows: (name, task, K, in-kernel policy + collection)
 ROWS = (
@@ -128,6 +293,8 @@ ROWS = (
     ("walker-walk@4096", "walker/walk", 200, False),
     ("cartpole-swingup@1024", "cartpole/swingup", 200, False),
     ("arm-muscle-wrap@4096", "arm/muscle-wrap", 200, False),
+    ("fourbar-equality@4096", "fourbar/equality", 200, False),
+    ("arms-self-collide@4096", "arms/self-collide", 200, False),
     ("humanoid-run@8192", "humanoid/run", 100, False),
     ("humanoid-run-policy-obs@8192", "humanoid/run", 100, True),
 )
@@ -137,6 +304,13 @@ EXTRA_MODES = (
     ("pendulum-swingup@1024", "pendulum/swingup", 200, "ctrl"),
     ("walker-walk-tendon@4096", "walker/walk-tendon", 200, "ctrl"),
     ("stateful-actuators@1024", "stateful/actuators", 200, "ctrl"),
+    # the connect off on every other env through eq_active
+    ("fourbar eq-toggle@4096", "fourbar/equality", 200, "toggle"),
+    ("weld@1024", "weld", 200, "ctrl"),
+    ("tendon-equality@1024", "tendon-equality", 200, "ctrl"),
+    ("box-pairs@1024", "box-pairs", 200, "ctrl"),
+    ("plane-box-cyl-ellipsoid@1024", "plane-shapes", 200, "ctrl"),
+    ("box-stack@1024", "box-stack", 200, "ctrl"),
     ("cheetah explore", "cheetah/run", 24, "explore"),
     ("cheetah gaussian_reset", "cheetah/run", 24, "gauss"),
 )
@@ -217,10 +391,12 @@ def philox_phase():
     log("philox: known-answer vectors match on the card")
 
 
-def parity_inputs(benv, fn, seed=7):
+def parity_inputs(benv, fn, seed=7, toggle=False):
     """A reset batch whose step counters are spread over the episode, so
     that some envs cross the time limit inside the window, with the
-    call's ctrl or policy weights."""
+    call's ctrl or policy weights and, for a model with equality
+    constraints, its eq_active rows (eq_active0; with ``toggle`` the
+    first equality off on every other env)."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     b = fn.batch
     data = benv.reset(gen)
@@ -239,8 +415,15 @@ def parity_inputs(benv, fn, seed=7):
         ctrl.uniform_(-1.0, 1.0, generator=gen)
     else:
         params = fn.policy.kernel_params()
+    eq_active = None
+    if fn.spec.neq:
+        eq_active = torch.tensor(
+            [float(x) for x in benv.model.eq_active0],
+            device="cuda")[:, None].repeat(1, b)
+        if toggle:
+            eq_active[0, 0::2] = 0.0
     return state + (ctrl, torch.tensor([20261016], dtype=torch.int32,
-                                       device="cuda"), params)
+                                       device="cuda"), params, eq_active)
 
 
 def resets_of(fn, args, out):
@@ -280,7 +463,7 @@ def plain_phase(modes):
     mode, so its CUDA-graph capture of the step is included)."""
     res = {}
     for label, (benv, fn) in modes.items():
-        args = parity_inputs(benv, fn)
+        args = parity_inputs(benv, fn, toggle="eq-toggle" in label)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         po = fn.plain(*args)
@@ -318,6 +501,16 @@ def parity_phase(modes, plain):
                 raise AssertionError(f"{label}: {k} error {v} over "
                                      f"{BARS[k]}")
         res[label] = dict(errs=me, resets=resets, same=same)
+    # eq-toggle: the envs whose connect is off leave the fourbar row's
+    # trajectories (same inputs but eq_active)
+    tog = plain["fourbar eq-toggle@4096"]["out"][0]
+    row = plain["fourbar-equality@4096"]["out"][0]
+    if torch.equal(tog[:, 0::2], row[:, 0::2]):
+        raise AssertionError("fourbar eq-toggle: turning the connect off "
+                             "changed no trajectory")
+    log("fourbar eq-toggle: connect-off envs left the row's trajectories; "
+        "connect-on envs bit-identical to the row's: "
+        f"{torch.equal(tog[:, 1::2], row[:, 1::2])}")
     return res
 
 
@@ -409,7 +602,7 @@ def bound(fn, built, resets):
     # nq + nv Box-Muller normals
     ops += resets * (built.reset_ops + 25 * s.n_draws + 8 * (s.nq + s.nv))
     sfu += resets * 3 * (s.nq + s.nv)
-    nbytes = 4 * b * (2 * (s.nq + 2 * s.nv + fn.na_rows + 1) + 2)
+    nbytes = 4 * b * (2 * (s.nq + 2 * s.nv + fn.na_rows + 1) + 2 + s.neq)
     if fn.policy is None:
         nbytes += 4 * k * s.nu * b
     else:
@@ -450,7 +643,7 @@ def main():
             benv.model, benv.num_envs, k,
             gauss if variant == "gauss"
             else benv.task.kernel_hooks(benv.model),
-            emit_obs=variant != "ctrl",
+            emit_obs=variant in ("explore", "gauss"),
             policy=explorer if variant == "explore" else None))
     fma = mk.build_rollout(cheetah.model, 4096, 200, hooks, fmad=True)
 

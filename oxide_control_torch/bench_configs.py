@@ -1,8 +1,9 @@
 """Bench configurations outside the control suite.
 
 The port's copy of the reference bench's synthetic widening configs
-(``bench.py:275-308`` ``_BenchTask`` and ``bench.py:333-367``
-``_MUSCLE_WRAP_XML``, loaded as in ``bench.py:413-425``).  They are not
+(``bench.py:275-308`` ``_BenchTask``; ``bench.py:311-331`` ``_ARMS_XML``,
+``bench.py:333-367`` ``_MUSCLE_WRAP_XML`` and ``bench.py:369-393``
+``_FOURBAR_XML``, loaded as in ``bench.py:413-425``).  They are not
 suite tasks (the reference suite has none of them).  Usage::
 
     benv = bench_configs.load_config("arm", "muscle-wrap", 4096)  # on cuda
@@ -18,6 +19,30 @@ from .mjcf.compile import load_model_from_xml
 from .model import Model
 from .state import Data
 from .suite.common import uniform
+
+# bench.py:311-331: two arms on hinges, children of the world, whose
+# capsules and tip spheres collide with each other and the floor
+ARMS_XML = """
+<mujoco>
+  <option solver="Newton" iterations="8" tolerance="0"/>
+  <worldbody>
+    <geom name="floor" type="plane" size="5 5 .1"/>
+    <body pos="0 0 0.5">
+      <joint name="s1" type="hinge" axis="0 1 0" damping="0.05"/>
+      <geom name="armA" type="capsule" fromto="0 0 0 0.4 0 0" size="0.05"
+            mass="1"/>
+      <geom name="tipA" type="sphere" pos="0.45 0 0" size="0.05" mass="0.1"/>
+    </body>
+    <body pos="0.25 0 0.62">
+      <joint name="s2" type="hinge" axis="0 1 0" damping="0.05"/>
+      <geom name="armB" type="capsule" fromto="0 0 0 0.4 0 0" size="0.05"
+            mass="1"/>
+      <geom name="tipB" type="sphere" pos="0.45 0 0" size="0.05" mass="0.1"/>
+    </body>
+  </worldbody>
+  <actuator><motor joint="s1" gear="2"/><motor joint="s2" gear="2"/></actuator>
+</mujoco>
+"""
 
 # bench.py:333-367: a muscle on a spatial tendon that wraps a sphere with a
 # sidesite, a tendon spring/damper, a limited elbow and a motor
@@ -57,6 +82,35 @@ MUSCLE_WRAP_XML = """
 </mujoco>
 """
 
+# bench.py:369-393: a four-bar linkage closed by a connect equality, with
+# a joint-polynomial equality coupling its two grounded hinges
+FOURBAR_XML = """
+<mujoco>
+  <option solver="Newton" iterations="10" tolerance="0"/>
+  <worldbody>
+    <geom name="floor" type="plane" size="5 5 .1"/>
+    <body pos="0 0 1">
+      <joint name="a1" type="hinge" axis="0 1 0" damping="0.1"/>
+      <geom type="capsule" fromto="0 0 0 0.4 0 0" size="0.03" mass="0.5"/>
+      <body name="link2" pos="0.4 0 0">
+        <joint name="a2" type="hinge" axis="0 1 0" damping="0.1"/>
+        <geom type="capsule" fromto="0 0 0 0.4 0 0" size="0.03" mass="0.5"/>
+      </body>
+    </body>
+    <body name="anchor" pos="0.8 0 1">
+      <joint name="b1" type="hinge" axis="0 1 0" damping="0.05"/>
+      <geom type="sphere" size="0.05" mass="0.3" contype="0" conaffinity="0"/>
+    </body>
+  </worldbody>
+  <equality>
+    <connect body1="link2" body2="anchor" anchor="0.4 0 0"/>
+    <joint joint1="a1" joint2="b1" polycoef="0 0.5 0.1 0 0"/>
+  </equality>
+  <actuator><motor joint="a1" gear="1"/></actuator>
+</mujoco>
+"""
+
+
 class BenchTask:
     """Minimal kernel-eligible task of the synthetic configs
     (``bench.py:275-308``): observation on raw coordinates, reward
@@ -85,7 +139,11 @@ class BenchTask:
 
 
 # the configs' XMLs by (domain, task); every one runs the bench task
-CONFIGS = {("arm", "muscle-wrap"): MUSCLE_WRAP_XML}
+CONFIGS = {
+    ("arm", "muscle-wrap"): MUSCLE_WRAP_XML,
+    ("fourbar", "equality"): FOURBAR_XML,
+    ("arms", "self-collide"): ARMS_XML,
+}
 
 
 def load_config(domain: str, task: str, batch: int, dtype=np.float32,

@@ -6,6 +6,8 @@
 * ``state_from_numpy`` / ``state_to_numpy``: the coordinate-major kernel
   state in ``FastRollout.pack`` order, ``(qpos (nq,B), qvel (nv,B),
   act (max(na,1),B), warmstart (nv,B), time (1,B))``, both ways.
+* ``eq_active_to_kernel`` / ``eq_active_from_kernel``: ``Data.eq_active``
+  rows ``(B, neq)`` <-> the kernel's coordinate-major ``(neq, B)``.
 """
 
 from __future__ import annotations
@@ -41,3 +43,14 @@ def state_from_numpy(arrays, device, dtype=torch.float32):
 def state_to_numpy(state):
     """Kernel state tensors -> coordinate-major numpy arrays."""
     return tuple(t.detach().cpu().numpy() for t in state)
+
+
+def eq_active_to_kernel(eq_active, dtype=torch.float32, device=None):
+    """(B, neq) 0/1 or bool -> contiguous (neq, B) of ``dtype``."""
+    t = torch.as_tensor(eq_active, device=device)
+    return t.to(dtype).T.contiguous()
+
+
+def eq_active_from_kernel(eq_active):
+    """(neq, B) kernel rows -> (B, neq) bool, Data.eq_active's form."""
+    return eq_active.T != 0

@@ -35,8 +35,15 @@
 // the act input and output hold max(na, 1) rows: a model without
 // activation state carries one row, passed through
 #define OXC_NA_ROWS (OXC_NA > 0 ? OXC_NA : 1)
+// a model without actuators (nu = 0) still sizes its ctrl buffers at 1
+#define OXC_NU_ROWS (OXC_NU > 0 ? OXC_NU : 1)
 // one warp per block: a batch of 4096 spreads over 128 SMs
 #define OXC_BLOCK 32
+// equality constraints of the model (its header defines OXC_NEQ when it
+// has any); their eq_active lanes are a runtime input
+#ifndef OXC_NEQ
+#define OXC_NEQ 0
+#endif
 
 struct OxcMlp {
   int n_layers;
@@ -52,6 +59,7 @@ oxc_rollout_kernel(const float* __restrict__ qpos,
                    const float* __restrict__ ctrl,
                    const int* __restrict__ seed_ptr,
                    const float* __restrict__ params, int n_params,
+                   const float* __restrict__ eq_active,
                    OxcMlp mlp, float explore_sigma,
                    float* __restrict__ qpos_o, float* __restrict__ qvel_o,
                    float* __restrict__ act_o, float* __restrict__ ws_o,
@@ -78,12 +86,18 @@ oxc_rollout_kernel(const float* __restrict__ qpos,
   for (int i = 0; i < OXC_NV; ++i) v[i] = qvel[i * B + env];
   for (int i = 0; i < OXC_NA_ROWS; ++i) a[i] = act[i * B + env];
   for (int i = 0; i < OXC_NV; ++i) w[i] = ws[i * B + env];
+#if OXC_NEQ > 0
+  // the env's eq_active lanes (0/1 per equality), constant over the call
+  bool eqa[OXC_NEQ];
+  for (int e = 0; e < OXC_NEQ; ++e)
+    eqa[e] = eq_active[(size_t)e * B + env] != 0.0f;
+#endif
   // exact step counter (time is always a multiple of h here)
   int n = (int)rintf(time_in[env] * OXC_INV_H);
   float rew = 0.0f, ndiv = 0.0f;
 
   for (int k = 0; k < K; ++k) {
-    float c[OXC_NU];
+    float c[OXC_NU_ROWS];
     if (policy || collect) {
       float obs[OXC_NOBS];
       oxc_observe(q, v, obs);
@@ -93,7 +107,7 @@ oxc_rollout_kernel(const float* __restrict__ qpos,
       if (policy) {
         oxc_mlp(sh_params, mlp.n_layers, mlp.dims, obs, c);
         if (explore_sigma > 0.0f) {
-          float s[2 * OXC_NU];
+          float s[2 * OXC_NU_ROWS];
           oxc_draw_signed(seed, OXC_SALT_EXPLORE, (uint32_t)env, (uint32_t)k,
                           2 * OXC_NU, s);
           for (int u = 0; u < OXC_NU; ++u)
@@ -109,7 +123,11 @@ oxc_rollout_kernel(const float* __restrict__ qpos,
         c[u] = ctrl[((size_t)k * OXC_NU + u) * B + env];
 
     float qn[OXC_NQ], vn[OXC_NV], wn[OXC_NV], an[OXC_NA_ROWS];
+#if OXC_NEQ > 0
+    oxc_step(q, v, a, w, c, eqa, qn, vn, an, wn);
+#else
     oxc_step(q, v, a, w, c, qn, vn, an, wn);
+#endif
     n += 1;
 
     // divergence (non-finite or |x| > 1e10, on q and v only) + time
@@ -159,7 +177,8 @@ oxc_rollout_kernel(const float* __restrict__ qpos,
 extern "C" int oxc_rollout_launch(
     const float* qpos, const float* qvel, const float* act, const float* ws,
     const float* time_in, const float* ctrl, const int* seed,
-    const float* params, int n_params, int n_layers, const int* dims,
+    const float* params, int n_params, const float* eq_active, int n_layers,
+    const int* dims,
     float explore_sigma, float* qpos_o, float* qvel_o, float* act_o,
     float* ws_o, float* time_o, float* reward_sum, float* diverged,
     float* obs_o, float* rewards_o, float* dones_o, float* ctrls_o, int B,
@@ -172,6 +191,7 @@ extern "C" int oxc_rollout_launch(
     if (dims[i] > OXC_MAX_WIDTH) return (int)cudaErrorInvalidValue;
   if (params && (dims[0] != OXC_NOBS || dims[n_layers] != OXC_NU))
     return (int)cudaErrorInvalidValue;
+  if (OXC_NEQ > 0 && eq_active == nullptr) return (int)cudaErrorInvalidValue;
   const int threads = OXC_BLOCK;
   const int blocks = (B + threads - 1) / threads;
   const size_t shmem = params ? (size_t)n_params * sizeof(float) : 0;
@@ -182,8 +202,8 @@ extern "C" int oxc_rollout_launch(
     if (e != cudaSuccess) return (int)e;
   }
   oxc_rollout_kernel<<<blocks, threads, shmem, (cudaStream_t)stream>>>(
-      qpos, qvel, act, ws, time_in, ctrl, seed, params, n_params, mlp,
-      explore_sigma, qpos_o, qvel_o, act_o, ws_o, time_o, reward_sum,
+      qpos, qvel, act, ws, time_in, ctrl, seed, params, n_params, eq_active,
+      mlp, explore_sigma, qpos_o, qvel_o, act_o, ws_o, time_o, reward_sum,
       diverged, obs_o, rewards_o, dones_o, ctrls_o, B, K);
   return (int)cudaGetLastError();
 }

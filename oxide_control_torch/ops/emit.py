@@ -197,6 +197,9 @@ class Emitter:
         return Sym(self, name, kind)
 
     def _bin(self, op, a, b, kind="f", sfu=False) -> Sym:
+        for x in (a, b):
+            if not (isinstance(x, Sym) or _is_const(x)):
+                return NotImplemented  # e.g. a Dual: its reflected op runs
         return self._new(f"{self.arg(a)} {op} {self.arg(b)}", kind, sfu)
 
     def _logic(self, op, a, b):
@@ -275,6 +278,19 @@ class Emitter:
     def not_(self, x):
         return (not x) if _is_const(x) else self._new(f"!{x.name}", "b")
 
+    def sign(self, x):
+        """torch.sign on CUDA: (0 < x) - (x < 0), so sign(-0) = +0 and
+        sign(NaN) = 0."""
+        if _is_const(x):
+            return float((x > 0) - (x < 0))
+        z = self.lit(0.0)
+        return self._new(f"({z} < {x.name}) - ({x.name} < {z})", "f")
+
+    def eq(self, a, b):
+        if _is_const(a) and _is_const(b):
+            return a == b
+        return self._bin("==", a, b, kind="b")
+
     def fori(self, n: int, carry, body):
         """A C ``for`` loop of ``n`` trips with mutable carry variables;
         returns symbols naming the carries' final values."""
@@ -310,10 +326,10 @@ class Emitter:
         return vars_
 
     # ----- function assembly -----
-    def load(self, array: str, n: int) -> list:
+    def load(self, array: str, n: int, kind: str = "f") -> list:
         """Symbols naming ``array[0..n-1]`` (an input the function only
-        reads)."""
-        return [Sym(self, f"{array}[{i}]", "f") for i in range(n)]
+        reads), float or (``kind="b"``) bool."""
+        return [Sym(self, f"{array}[{i}]", kind) for i in range(n)]
 
     def store(self, array: str, values) -> None:
         for i, x in enumerate(values):

@@ -108,6 +108,7 @@ class EnvSpec:
     uamp: tuple
     qsig: tuple
     vsig: float
+    neq: int = 0
 
     @property
     def n_draws(self) -> int:
@@ -139,7 +140,7 @@ def env_spec(model: Model, hooks: EnvHooks) -> EnvSpec:
     return EnvSpec(nq=nq, nv=model.nv, nu=model.nu, na=model.na,
                    n_obs=hooks.n_obs, h=h, limit_n=limit_n,
                    qpos0=tuple(qpos0), uamp=tuple(uamp), qsig=tuple(qsig),
-                   vsig=float(hooks.reset_qvel_sigma))
+                   vsig=float(hooks.reset_qvel_sigma), neq=model.neq)
 
 
 def _quat_coords(model: Model) -> list[int]:
@@ -296,14 +297,17 @@ def kernel_source(model: Model, hooks: EnvHooks,
     step = sg.build_step(model, em)
     q, v, a = em.load("q", nq), em.load("v", nv), em.load("a", na)
     w, c = em.load("w", nv), em.load("c", nu)
-    qn, vn, an, wn = step(q, v, a, w, c)
+    # a model with equality constraints takes one bool lane per equality
+    eq = em.load("eq", spec.neq, "b") if spec.neq else None
+    qn, vn, an, wn = step(q, v, a, w, c, eq)
     em.store("q_out", qn)
     em.store("v_out", vn)
     em.store("a_out", an)
     em.store("w_out", wn)
+    eq_arg = "const bool* eq, " if spec.neq else ""
     parts.append(em.function(
         f"void oxc_step(const {T}* q, const {T}* v, const {T}* a, "
-        f"const {T}* w, const {T}* c, {T}* q_out, {T}* v_out, "
+        f"const {T}* w, const {T}* c, {eq_arg}{T}* q_out, {T}* v_out, "
         f"{T}* a_out, {T}* w_out)"))
     step_ops, step_sfu = em.ops, em.sfu_ops
 
@@ -342,7 +346,7 @@ def kernel_source(model: Model, hooks: EnvHooks,
         f"#define OXC_LIMIT_N {spec.limit_n}",
         f"#define OXC_H {lit(spec.h)}",
         f"#define OXC_INV_H {lit(1.0 / spec.h)}",
-    ])
+    ] + ([f"#define OXC_NEQ {spec.neq}"] if spec.neq else []))
     text = (f"/* emitted by oxide_control_torch.ops.megakernel.kernel_source"
             f" ({ctype}): do not edit */\n#pragma once\n" + PRELUDE + "\n"
             + defines + "\n\n" + "\n".join(parts))
@@ -369,6 +373,14 @@ def _pack_params(params, dims, device, dtype):
     return torch.cat(flat).to(device=device, dtype=dtype).contiguous()
 
 
+def _eq_lanes(eq_active):
+    """(neq, B) 0/1 rows -> the step's bool lanes (None without
+    equality): the kernel's ``eq_active != 0``."""
+    if eq_active is None or not len(eq_active):
+        return None
+    return [row != 0 for row in eq_active]
+
+
 class _GraphedStep:
     """The plain step captured once as a CUDA graph and replayed.
 
@@ -379,12 +391,15 @@ class _GraphedStep:
 
     def __init__(self, bk, step, spec: EnvSpec):
         dev = bk.device
+        # the eq_active rows are an input buffer too: nothing is copied
+        # from the host while the graph is captured
         self.ins = [torch.zeros((n, bk.batch), device=dev, dtype=bk.dtype)
-                    for n in (spec.nq, spec.nv, spec.na, spec.nv, spec.nu)]
+                    for n in (spec.nq, spec.nv, spec.na, spec.nv, spec.nu,
+                              spec.neq)]
 
         def run():
-            q, v, a, w, c = (list(x) for x in self.ins)
-            outs = step(q, v, a, w, c)
+            q, v, a, w, c = (list(x) for x in self.ins[:5])
+            outs = step(q, v, a, w, c, _eq_lanes(self.ins[5]))
             return [torch.stack([bk.full(x) for x in xs]) if xs else None
                     for xs in outs]
 
@@ -399,10 +414,12 @@ class _GraphedStep:
         with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
             self.outs = run()
 
-    def __call__(self, q, v, a, w, c):
+    def __call__(self, q, v, a, w, c, eq_active=None):
         for buf, xs in zip(self.ins, (q, v, a, w, c)):
             if xs:
                 buf.copy_(torch.stack(xs))
+        if eq_active is not None:
+            self.ins[5].copy_(eq_active)
         self.graph.replay()
         return tuple([] if o is None else list(o.clone())
                      for o in self.outs)
@@ -410,11 +427,15 @@ class _GraphedStep:
 
 class RolloutFn:
     """``fn(qpos (nq,B), qvel (nv,B), act (max(na,1),B), ws (nv,B),
-    time (1,B), ctrl (K,nu,B) | None, seed (1,) int32, params=None)``.
+    time (1,B), ctrl (K,nu,B) | None, seed (1,) int32, params=None,
+    eq_active=None)``.
 
     Without a policy ``ctrl`` is required; with one, ``params`` is the
     list (W_1, b_1, ..., W_L, b_L) with W (out, in) and b (out, 1) and
-    ``ctrl`` is None.  Returns ``(qpos', qvel', act', ws', time',
+    ``ctrl`` is None.  A model with equality constraints takes
+    ``eq_active (neq,B)`` in the state's dtype, 0/1 per env and equality
+    (Data.eq_active, constant over the call); a model without takes none.
+    Returns ``(qpos', qvel', act', ws', time',
     reward_sum (1,B), diverged (1,B))`` plus, with ``emit_obs``,
     ``obs (K,n_obs,B), rewards (K,B), dones (K,B)`` and, with a policy,
     ``ctrls (K,nu,B)``.
@@ -456,7 +477,8 @@ class RolloutFn:
         self._plain_steps = {}
 
     # ----- shared checks -----
-    def _check(self, qpos, qvel, act, ws, time, ctrl, seed, params):
+    def _check(self, qpos, qvel, act, ws, time, ctrl, seed, params,
+               eq_active):
         s, B, K = self.spec, self.batch, self.steps
         want = dict(qpos=(s.nq, B), qvel=(s.nv, B), act=(self.na_rows, B),
                     ws=(s.nv, B), time=(1, B))
@@ -477,6 +499,16 @@ class RolloutFn:
                              "(W_1, b_1, ..., W_L, b_L)")
         if seed is None or seed.numel() != 1 or seed.device != dev:
             raise ValueError(f"seed must be one int32 on {dev}")
+        if s.neq == 0 and eq_active is not None:
+            raise ValueError("eq_active given for a model without equality "
+                             "constraints")
+        if s.neq and (eq_active is None
+                      or tuple(eq_active.shape) != (s.neq, B)
+                      or eq_active.device != dev
+                      or eq_active.dtype != dtype):
+            raise ValueError(f"a model with {s.neq} equality constraints "
+                             f"needs eq_active of shape {(s.neq, B)}, "
+                             f"{dtype} on {dev}")
 
     def _alloc(self, like):
         s, B, K = self.spec, self.batch, self.steps
@@ -491,13 +523,14 @@ class RolloutFn:
         return out
 
     def __call__(self, qpos, qvel, act, ws, time, ctrl=None, seed=None,
-                 params=None):
+                 params=None, eq_active=None):
         if qpos.is_cuda:
             return self._launch(qpos, qvel, act, ws, time, ctrl, seed,
-                                params)
+                                params, eq_active)
         if qpos.device.type != "cpu":
             raise ValueError(f"no rollout for device {qpos.device}")
-        return self.plain(qpos, qvel, act, ws, time, ctrl, seed, params)
+        return self.plain(qpos, qvel, act, ws, time, ctrl, seed, params,
+                          eq_active)
 
     # ----- the kernel -----
     def build(self):
@@ -509,13 +542,16 @@ class RolloutFn:
             self._lib = build.build_rollout_library(src, fmad=self.fmad)
         return self._lib
 
-    def _launch(self, qpos, qvel, act, ws, time, ctrl, seed, params):
-        self._check(qpos, qvel, act, ws, time, ctrl, seed, params)
+    def _launch(self, qpos, qvel, act, ws, time, ctrl, seed, params,
+                eq_active):
+        self._check(qpos, qvel, act, ws, time, ctrl, seed, params,
+                    eq_active)
         if qpos.dtype != torch.float32:
             raise ValueError("the rollout kernel takes float32 state")
         ins = [qpos, qvel, act, ws, time]
-        if ctrl is not None:
-            ins.append(ctrl)
+        for t in (ctrl, eq_active):
+            if t is not None:
+                ins.append(t)
         for t in ins:
             if not t.is_contiguous():
                 raise ValueError("the rollout kernel takes contiguous "
@@ -543,7 +579,7 @@ class RolloutFn:
         err = built.launch(
             ptr(qpos), ptr(qvel), ptr(act), ptr(ws), ptr(time),
             ptr(ctrl), ptr(seed), ptr(packed), ctypes.c_int(n_params),
-            ctypes.c_int(max(len(self.dims) - 1, 0)), dims,
+            ptr(eq_active), ctypes.c_int(max(len(self.dims) - 1, 0)), dims,
             ctypes.c_float(self.explore_sigma),
             *(ptr(t) for t in out[:7]),
             ptr(obs), ptr(rews), ptr(dones), ptr(ctrls),
@@ -557,11 +593,12 @@ class RolloutFn:
 
     # ----- the plain version -----
     def plain(self, qpos, qvel, act, ws, time, ctrl=None, seed=None,
-              params=None):
+              params=None, eq_active=None):
         """The plain PyTorch version on ``qpos.device``: the scalar graph
         on (B,) tensors in a Python K loop (on a card, its step replayed
         from a CUDA graph: see :class:`_GraphedStep`)."""
-        self._check(qpos, qvel, act, ws, time, ctrl, seed, params)
+        self._check(qpos, qvel, act, ws, time, ctrl, seed, params,
+                    eq_active)
         s, B, K = self.spec, self.batch, self.steps
         dev, dtype = qpos.device, qpos.dtype
         key = (dev, dtype)
@@ -570,6 +607,9 @@ class RolloutFn:
             step = sg.build_step(self.model, bk)
             if dev.type == "cuda":
                 step = _GraphedStep(bk, step, s)
+            else:
+                step = (lambda f: lambda q, v, a, w, c, e: f(
+                    q, v, a, w, c, _eq_lanes(e)))(step)
             self._plain_steps[key] = (bk, step,
                                       *bind_hooks(self.model, self.hooks, bk))
         bk, step, observe, reward = self._plain_steps[key]
@@ -607,7 +647,7 @@ class RolloutFn:
                 if self.policy is not None:
                     outs[10][k] = cmat
 
-            q, v, a, w = step(q, v, a, w, c)
+            q, v, a, w = step(q, v, a, w, c, eq_active)
             n = n + 1
             # divergence + time limit (bad before the reward, so a NaN
             # reward from a diverged state is masked, not accumulated)

@@ -34,6 +34,7 @@ constants.
 
 from __future__ import annotations
 
+import itertools
 import math
 
 import numpy as np
@@ -43,6 +44,7 @@ from ..model import (
     BiasType,
     ConeType,
     DynType,
+    EqType,
     GainType,
     GeomType,
     Integrator,
@@ -151,6 +153,16 @@ class TorchBackend:
     def not_(self, x):
         return (not x) if _is_const(x) else torch.logical_not(x)
 
+    def sign(self, x):
+        """torch.sign: -1, 0 or 1; sign(-0) = +0 and sign(NaN) = 0
+        (jnp.sign keeps the NaN: the two differ only on a NaN input)."""
+        if _is_const(x):
+            return float((x > 0) - (x < 0))
+        return torch.sign(x)
+
+    def eq(self, a, b):
+        return a == b
+
     def fori(self, n: int, carry, body):
         """``carry = body(carry)`` n times; the carry is materialized so
         nothing inside the loop folds against a loop-carried constant."""
@@ -158,6 +170,237 @@ class TorchBackend:
         for _ in range(n):
             carry = [self.full(c) for c in body(list(carry))]
         return carry
+
+
+# ---------------------------------------------------------------------------
+# forward-mode tangents (the port of the reference's jax.jvp)
+# ---------------------------------------------------------------------------
+
+
+class Dual:
+    """A value of the tangent pass: the primal ``v``, computed when the
+    Dual is made by the very op the plain path applies (so it is bit for
+    bit the plain path's value), and its tangent ``t``, computed on demand
+    by :func:`tangents` from ``rule`` and the tangents of ``args``.  Only
+    the tangents that an output needs are ever built."""
+
+    __slots__ = ("v", "t", "rule", "args", "n")
+    _serial = itertools.count()
+
+    def __init__(self, v, rule=None, args=(), t=None):
+        self.v, self.t, self.rule, self.args = v, t, rule, args
+        self.n = next(Dual._serial)  # creation order: a topological order
+
+    def __add__(self, o):
+        return Dual(self.v + _dv(o), add, (self, o))
+
+    def __radd__(self, o):
+        return Dual(o + self.v, add, (o, self))
+
+    def __sub__(self, o):
+        return Dual(self.v - _dv(o), sub, (self, o))
+
+    def __rsub__(self, o):
+        return Dual(o - self.v, sub, (o, self))
+
+    def __mul__(self, o):
+        a, b = self.v, _dv(o)
+        return Dual(a * b, lambda ta, tb: add(mul(ta, b), mul(a, tb)),
+                    (self, o))
+
+    def __rmul__(self, o):
+        a, b = o, self.v
+        return Dual(a * b, lambda ta, tb: add(mul(ta, b), mul(a, tb)),
+                    (o, self))
+
+    def __truediv__(self, o):
+        return _dual_div(self, o, self.v / _dv(o))
+
+    def __rtruediv__(self, o):
+        return _dual_div(o, self, o / self.v)
+
+    def __neg__(self):
+        return Dual(-self.v, neg, (self,))
+
+    def __lt__(self, o):
+        return self.v < _dv(o)
+
+    def __le__(self, o):
+        return self.v <= _dv(o)
+
+    def __gt__(self, o):
+        return self.v > _dv(o)
+
+    def __ge__(self, o):
+        return self.v >= _dv(o)
+
+    def __bool__(self):
+        raise TypeError("a traced value has no truth value at build time")
+
+
+def _dv(x):
+    return x.v if isinstance(x, Dual) else x
+
+
+def _div(a, b):
+    """a / b, folding a numerator that is identically 0."""
+    if _is_const(a) and a == 0.0:
+        return 0.0
+    return a / b
+
+
+def _dual_div(a, b, q):
+    # d(a / b) = da / b - q db / b
+    bv = _dv(b)
+    return Dual(q, lambda ta, tb: sub(_div(ta, bv), mul(q, _div(tb, bv))),
+                (a, b))
+
+
+def _primal(x):
+    """``x`` with every Dual replaced by its primal, through tuples, lists
+    and dicts."""
+    if isinstance(x, Dual):
+        return x.v
+    if isinstance(x, tuple):
+        return tuple(_primal(y) for y in x)
+    if isinstance(x, list):
+        return [_primal(y) for y in x]
+    if isinstance(x, dict):
+        return {k: _primal(y) for k, y in x.items()}
+    return x
+
+
+def tangents(outs):
+    """The tangents of ``outs`` (Duals, or plain values whose tangent is
+    0): every Dual they depend on gets its tangent once, in creation
+    order."""
+    todo, stack = {}, [o for o in outs if isinstance(o, Dual)]
+    while stack:
+        d = stack.pop()
+        if d.t is not None or d.n in todo:
+            continue
+        todo[d.n] = d
+        stack.extend(a for a in d.args if isinstance(a, Dual))
+    for n in sorted(todo):
+        d = todo[n]
+        d.t = d.rule(*(a.t if isinstance(a, Dual) else 0.0 for a in d.args))
+    return [o.t if isinstance(o, Dual) else 0.0 for o in outs]
+
+
+class DualBackend:
+    """The backend of the tangent pass, over the step's backend ``bk``.
+
+    Each op computes its primal with ``bk``'s own op and records the
+    derivative rule of JAX's ``jvp`` (named per op), so one tangent layer
+    serves the torch backend and the emitter alike.  Values are Duals, or
+    ``bk``'s values and constants, whose tangent is 0."""
+
+    def __init__(self, bk):
+        self.bk = bk
+        self._memo = {}  # (op, id(primal)) -> (primal, result)
+
+    def _unary(self, name, x):
+        key = (name, id(x))
+        if key not in self._memo:
+            self._memo[key] = (x, getattr(self.bk, name)(x))
+        return self._memo[key][1]
+
+    @staticmethod
+    def _wrap(v, rule, args):
+        if not any(isinstance(a, Dual) for a in args):
+            return v
+        return Dual(v, rule, args)
+
+    def full(self, x):
+        return x if isinstance(x, Dual) else self.bk.full(x)
+
+    def where(self, c, a, b):
+        # select: the selected operand's tangent
+        if _is_const(c):
+            return a if c else b
+        bk = self.bk
+
+        def rule(ta, tb):
+            if _is_const(ta) and _is_const(tb) and ta == tb:
+                return ta
+            return bk.where(c, ta, tb)
+
+        return self._wrap(bk.where(c, _dv(a), _dv(b)), rule, (a, b))
+
+    def _minmax(self, a, b, v, picks):
+        """max/min: the tangent weights of JAX's _balanced_eq, 1 for the
+        operand the op picks, 0 for the other, 0.5 each at a tie;
+        ``picks(x, y)`` is whether the op may pick x over y."""
+        av, bv, bk = _dv(a), _dv(b), self.bk
+
+        def rule(ta, tb):
+            a_in, b_in = picks(av, bv), picks(bv, av)
+            out = 0.0
+            if not (_is_const(ta) and ta == 0.0):
+                out = mul(ta, bk.where(a_in, bk.where(b_in, 0.5, 1.0), 0.0))
+            if not (_is_const(tb) and tb == 0.0):
+                out = add(out, mul(tb, bk.where(
+                    b_in, bk.where(a_in, 0.5, 1.0), 0.0)))
+            return out
+
+        return self._wrap(v, rule, (a, b))
+
+    def maximum(self, a, b):
+        return self._minmax(a, b, self.bk.maximum(_dv(a), _dv(b)),
+                            lambda x, y: x >= y)
+
+    def minimum(self, a, b):
+        return self._minmax(a, b, self.bk.minimum(_dv(a), _dv(b)),
+                            lambda x, y: x <= y)
+
+    def clip(self, x, lo, hi):
+        # jnp.clip is minimum(maximum(x, lo), hi): its tangent composes
+        # the two rules (the primal equals bk.clip's)
+        if not isinstance(x, Dual):
+            return self.bk.clip(x, lo, hi)
+        return self.minimum(self.maximum(x, lo), hi)
+
+    def abs(self, x):
+        # select(x >= 0, t, -t)
+        xv, bk = _dv(x), self.bk
+        return self._wrap(bk.abs(xv),
+                          lambda t: bk.where(xv >= 0.0, t, neg(t)), (x,))
+
+    def sqrt(self, x):
+        # t * (0.5 / ans)
+        v = self.bk.sqrt(_dv(x))
+        return self._wrap(v, lambda t: mul(t, 0.5 / v), (x,))
+
+    def rsqrt(self, x):
+        # t * (-0.5 * (ans / x))
+        xv = _dv(x)
+        v = self.bk.rsqrt(xv)
+        return self._wrap(v, lambda t: mul(t, mul(-0.5, v / xv)), (x,))
+
+    def sin(self, x):
+        # t * cos(x)
+        xv = _dv(x)
+        return self._wrap(self._unary("sin", xv),
+                          lambda t: mul(t, self._unary("cos", xv)), (x,))
+
+    def cos(self, x):
+        # t * -sin(x)
+        xv = _dv(x)
+        return self._wrap(self._unary("cos", xv),
+                          lambda t: mul(t, neg(self._unary("sin", xv))),
+                          (x,))
+
+    def sign(self, x):
+        return self.bk.sign(_dv(x))  # piecewise constant: tangent 0
+
+    def eq(self, a, b):
+        return self.bk.eq(_dv(a), _dv(b))
+
+    def isfinite(self, x):
+        return self.bk.isfinite(_dv(x))
+
+    def not_(self, x):
+        return self.bk.not_(x)
 
 
 # ---------------------------------------------------------------------------
@@ -400,12 +643,20 @@ def motion_cross(v, c):
 # support predicate
 # ---------------------------------------------------------------------------
 
-# contact-pair types with a scalar narrowphase in this port (see
-# _np_contacts_sg); the reference's other pairs are ROADMAP Queue A 10.3
+# contact-pair types with a scalar narrowphase (see _np_contacts_sg): the
+# reference's list
 _SUPPORTED_PAIRS = (
     (GeomType.PLANE, GeomType.SPHERE),
     (GeomType.PLANE, GeomType.CAPSULE),
+    (GeomType.PLANE, GeomType.BOX),
+    (GeomType.PLANE, GeomType.ELLIPSOID),
+    (GeomType.PLANE, GeomType.CYLINDER),
     (GeomType.SPHERE, GeomType.SPHERE),
+    (GeomType.SPHERE, GeomType.CAPSULE),
+    (GeomType.SPHERE, GeomType.BOX),
+    (GeomType.CAPSULE, GeomType.CAPSULE),
+    (GeomType.CAPSULE, GeomType.BOX),
+    (GeomType.BOX, GeomType.BOX),
 )
 
 
@@ -420,14 +671,18 @@ def unsupported_reason(model: Model) -> str | None:
       their body
     * integrator: Euler (implicit joint damping included) or RK4
     * solver: Newton with pyramidal cones at condim 1 or 3
-    * contacts: plane-sphere, plane-capsule and sphere-sphere
+    * contacts: plane-sphere/capsule/box/ellipsoid/cylinder,
+      sphere-sphere, sphere-capsule, sphere-box, capsule-capsule,
+      capsule-box and box-box (SAT and face clip)
     * actuators: every dynamics (none, integrator, filter, filterexact,
       muscle), gain and bias (fixed, affine, muscle), with a joint
       (hinge, slide, free), tendon or site (no refsite) transmission
     * tendons: fixed, and spatial (site paths, pulleys, sphere and
       cylinder wraps with or without a sidesite): springs, dampers,
       limits, friction loss and transmission; dof friction loss
-    * no equality, mocap bodies or fluid forces
+    * equality: connect, weld, joint and tendon, active or not at build
+      time (every row is gated by its runtime eq_active lane)
+    * no mocap bodies or fluid forces
     """
     for j in range(model.njnt):
         jt = JointType(model.jnt_type[j])
@@ -452,7 +707,8 @@ def unsupported_reason(model: Model) -> str | None:
     for (t1, t2, _) in model.pair_groups:
         if (GeomType(t1), GeomType(t2)) not in _SUPPORTED_PAIRS:
             return (f"contact pair {GeomType(t1).name}-{GeomType(t2).name}: "
-                    "other narrowphase pairs are ROADMAP Queue A item 10.3")
+                    "pairs without a closed-form narrowphase stay on the "
+                    "general path (ROADMAP Queue A item 11)")
     for c in model.pair_condim:
         if c not in (1, 3):
             return (f"condim {c}: condim 4/6 rows are ROADMAP Queue A "
@@ -479,8 +735,6 @@ def unsupported_reason(model: Model) -> str | None:
                         "only sphere and cylinder wraps are in the kernel "
                         "class; others stay on the general path (ROADMAP "
                         "Queue A item 11)")
-    if model.neq:
-        return "equality constraints are ROADMAP Queue A item 10.2"
     if model.nmocap:
         return "mocap bodies are ROADMAP Queue A item 10.8"
     if (model.opt.density != 0.0 or model.opt.viscosity != 0.0
@@ -526,9 +780,11 @@ class _ModelConsts:
             "tendon_damping", "tendon_frictionloss", "tendon_lengthspring",
             "tendon_margin", "tendon_solref_lim", "tendon_solimp_lim",
             "tendon_solref_fri", "tendon_solimp_fri", "tendon_invweight0",
-            "tendon_wrap_coef",
+            "tendon_wrap_coef", "eq_data", "eq_solref", "eq_solimp",
         ):
             setattr(self, name, _np(getattr(model, name)))
+        self.tendon_length0 = (None if model.tendon_length0 is None
+                               else _np(model.tendon_length0))
 
 
 # ---------------------------------------------------------------------------
@@ -1032,9 +1288,11 @@ def _fk_chain(bk, model, mc, sub_mask, qpos, com: bool = True):
 def build_step(model: Model, bk):
     """Build the scalar-graph step on backend ``bk``.
 
-    Returns ``step(qpos, qvel, act, warmstart, ctrl) -> (qpos', qvel',
-    act', warmstart')`` over python lists of backend values (one per
-    generalized coordinate / activation / actuator).
+    Returns ``step(qpos, qvel, act, warmstart, ctrl, eq_act=None) ->
+    (qpos', qvel', act', warmstart')`` over python lists of backend values
+    (one per generalized coordinate / activation / actuator).  ``eq_act``
+    is one bool lane per equality (Data.eq_active); without it the
+    equalities active at build time are always on (see :func:`_eq_rows`).
     """
     reason = unsupported_reason(model)
     if reason is not None:
@@ -1094,9 +1352,21 @@ def build_step(model: Model, bk):
                     else s / L[(i, i)])
         return x
 
-    def forward_pass(qpos, qvel, act, warmstart, ctrl):
+    cw_eqs = [e for e in range(model.neq)
+              if EqType(model.eq_type[e]) in (EqType.CONNECT, EqType.WELD)]
+
+    def forward_pass(qpos, qvel, act, warmstart, ctrl, eq_act=None):
         """Forward dynamics to qacc (no integration) and act_dot."""
-        fk = _fk_chain(bk, model, mc, sub_mask, qpos)
+        if any(eq_act is not None or model.eq_active0[e] for e in cw_eqs):
+            # connect and weld rows need d/dt of their Jacobian along
+            # qvel: the one FK of the pass runs on Duals, and its primal
+            # (the very ops of the plain FK) is the step's FK
+            fk_d = _fk_chain(DualBackend(bk), model, mc, sub_mask,
+                             _qpos_duals(model, qpos, qvel))
+            fk = _primal(fk_d)
+        else:
+            fk_d = None
+            fk = _fk_chain(bk, model, mc, sub_mask, qpos)
         xpos, xquat, xmat, xipos = (fk["xpos"], fk["xquat"], fk["xmat"],
                                     fk["xipos"])
         subtree_com, cdof = fk["subtree_com"], fk["cdof"]
@@ -1367,7 +1637,8 @@ def build_step(model: Model, bk):
 
         # ----------------- collision + efc assembly -----------------
         rows = _assemble_rows(bk, model, mc, qpos, qvel, xpos, xmat,
-                              subtree_com, cdof, bd_mask, h, ten)
+                              subtree_com, cdof, bd_mask, h, ten, eq_act,
+                              fk_d)
 
         # ----------------- Newton solver -----------------
         qfrc_constraint = [0.0] * nv
@@ -1432,9 +1703,9 @@ def build_step(model: Model, bk):
 
     if model.opt.integrator == Integrator.EULER:
 
-        def step(qpos, qvel, act, warmstart, ctrl):
+        def step(qpos, qvel, act, warmstart, ctrl, eq_act=None):
             fw = forward_pass(list(qpos), list(qvel), list(act),
-                              list(warmstart), list(ctrl))
+                              list(warmstart), list(ctrl), eq_act)
             # semi-implicit Euler with implicit joint damping (mj_Euler)
             if model.any_damping and not model.opt.disable_eulerdamp:
                 damp = [h * float(mc.dof_damping[i]) for i in range(nv)]
@@ -1454,10 +1725,10 @@ def build_step(model: Model, bk):
 
     else:  # RK4 (mj_RungeKutta, N=4): 4 chained forward passes
 
-        def step(qpos, qvel, act, warmstart, ctrl):
+        def step(qpos, qvel, act, warmstart, ctrl, eq_act=None):
             qpos, qvel, act = list(qpos), list(qvel), list(act)
             ctrl = list(ctrl)
-            fw = forward_pass(qpos, qvel, act, list(warmstart), ctrl)
+            fw = forward_pass(qpos, qvel, act, list(warmstart), ctrl, eq_act)
             vels = [qvel]
             accs = [fw["qacc"]]
             adots = [fw["act_dot"]]
@@ -1478,7 +1749,7 @@ def build_step(model: Model, bk):
                 act_i = [add(act[k], mul(h, da[k])) for k in range(na)]
                 # each stage warm-starts from the previous stage's qacc
                 fw = forward_pass(qpos_i, qvel_i, act_i, list(fw["qacc"]),
-                                  ctrl)
+                                  ctrl, eq_act)
                 vels.append(qvel_i)
                 accs.append(fw["qacc"])
                 adots.append(fw["act_dot"])
@@ -1519,6 +1790,207 @@ def build_fk(model: Model, bk):
         return out
 
     return fk
+
+
+# ---------------------------------------------------------------------------
+# equality rows
+# ---------------------------------------------------------------------------
+
+
+def _eq_cw_rows_sg(model, mc, fk, bd_mask, eqs):
+    """Connect and weld rows of the equalities ``eqs`` from an fk dict:
+    {eq_id: [(J dict, pos, dap), ...]}, the scalar form of the general
+    path's constraint._eq_cw_rows.  Run on the Duals of the tangent pass,
+    every J entry and pos carries its time derivative."""
+    if not eqs:
+        return {}
+    xpos, xmat, xquat = fk["xpos"], fk["xmat"], fk["xquat"]
+    subtree_com, cdof = fk["subtree_com"], fk["cdof"]
+
+    def trans_rows(p1, b1, p2, b2):
+        j1 = _point_jac_sg(model, cdof, subtree_com, bd_mask, p1, b1)
+        j2 = _point_jac_sg(model, cdof, subtree_com, bd_mask, p2, b2)
+        cpos = vsub3(p1, p2)
+        dap = float(mc.body_invweight0[b1][0] + mc.body_invweight0[b2][0])
+        out = []
+        for i in range(3):
+            J = {dof: v[i] for dof, v in j1.items()}
+            for dof, v in j2.items():
+                J[dof] = sub(J.get(dof, 0.0), v[i])
+            out.append((J, cpos[i], dap))
+        return out
+
+    out = {}
+    for e in eqs:
+        b1 = model.eq_obj1id[e]
+        b2 = max(model.eq_obj2id[e], 0)
+        data = [float(x) for x in mc.eq_data[e]]
+        if EqType(model.eq_type[e]) == EqType.CONNECT:
+            out[e] = trans_rows(
+                vadd3(xpos[b1], mat_vec(xmat[b1], tuple(data[:3]))), b1,
+                vadd3(xpos[b2], mat_vec(xmat[b2], tuple(data[3:6]))), b2)
+            continue
+        # weld: 3 translation rows, then 3 rotation rows with
+        # pos = -ts vec(conj(q1 relquat) q2) and
+        # J = -ts/2 V (jacr2 - jacr1), V[:, k] = vec(conj(A) e_k q2)
+        rq = np.asarray(data[6:10])
+        nrm = float(np.linalg.norm(rq))
+        relquat = tuple((rq / nrm if nrm > 0 else [1.0, 0, 0, 0]).tolist())
+        ts = data[10]
+        rows_e = trans_rows(
+            vadd3(xpos[b1], mat_vec(xmat[b1], tuple(data[3:6]))), b1,
+            vadd3(xpos[b2], mat_vec(xmat[b2], tuple(data[:3]))), b2)
+        q1, q2 = xquat[b1], xquat[b2]
+        conj_a = tuple(neg(x) if i else x
+                       for i, x in enumerate(qmul(q1, relquat)))
+        crot = vscale3(qmul(conj_a, q2)[1:4], -ts)
+        v_cols = []
+        for kk in range(3):
+            e_k = tuple(1.0 if i == kk + 1 else 0.0 for i in range(4))
+            v_cols.append(qmul(qmul(conj_a, e_k), q2)[1:4])
+        # the angular cdof difference (b2 - b1)
+        jr = {}
+        for dof in range(model.nv):
+            a2 = cdof[dof][0] if bd_mask[b2, dof] else None
+            a1 = cdof[dof][0] if bd_mask[b1, dof] else None
+            if a2 is None and a1 is None:
+                continue
+            if a2 is None:
+                jr[dof] = tuple(neg(x) for x in a1)
+            elif a1 is None:
+                jr[dof] = a2
+            else:
+                jr[dof] = vsub3(a2, a1)
+        dap_r = float(mc.body_invweight0[b1][1] + mc.body_invweight0[b2][1])
+        for i in range(3):
+            J = {}
+            for dof, av in jr.items():
+                s = 0.0
+                for kk in range(3):
+                    s = fma(s, v_cols[kk][i], av[kk])
+                J[dof] = mul(-0.5 * ts, s)
+            rows_e.append((J, crot[i], dap_r))
+        out[e] = rows_e
+    return out
+
+
+def _qpos_tangent_sg(model, qpos, qvel):
+    """d(qpos)/dt on the manifold, per coordinate: scalar joints copy
+    qvel, a free joint's quaternion moves as 0.5 q (0, w)."""
+    out = list(qpos)
+    for j in range(model.njnt):
+        qadr = model.jnt_qposadr[j]
+        vadr = model.jnt_dofadr[j]
+        if model.jnt_type[j] in (JointType.HINGE, JointType.SLIDE):
+            out[qadr] = qvel[vadr]
+            continue
+        for i in range(3):
+            out[qadr + i] = qvel[vadr + i]
+        q = tuple(qpos[qadr + 3 + i] for i in range(4))
+        w = (0.0,) + tuple(qvel[vadr + 3 + i] for i in range(3))
+        qd = qmul(q, w)
+        for i in range(4):
+            out[qadr + 3 + i] = mul(0.5, qd[i])
+    return out
+
+
+def _qpos_duals(model, qpos, qvel):
+    """qpos as the leaves of the tangent pass: Duals whose tangent is
+    :func:`_qpos_tangent_sg`'s, built on first demand."""
+    memo = []
+
+    def tan(i):
+        if not memo:
+            memo.append(_qpos_tangent_sg(model, qpos, qvel))
+        return memo[0][i]
+
+    return [Dual(q, lambda i=i: tan(i)) for i, q in enumerate(qpos)]
+
+
+def _horner(poly, x):
+    """(p(x), p'(x)) of the quartic ``poly`` (lowest order first)."""
+    pval, dval = poly[4], 0.0
+    for c in (poly[3], poly[2], poly[1], poly[0]):
+        dval = fma(pval, dval, x)
+        pval = fma(c, pval, x)
+    return pval, dval
+
+
+def _eq_rows(bk, model, mc, qpos, qvel, bd_mask, h, ten, eq_act, fk_d):
+    """Equality rows (mjCNSTR_EQUALITY) in equality order, kind ``eq``.
+
+    Without ``eq_act`` only the equalities active at build time
+    (eq_active0) get rows, which always exist; with it (one bool lane per
+    equality, Data.eq_active) every equality gets rows that exist where
+    its lane is set.  Joint and tendon rows couple two coordinates through
+    a quartic; connect and weld rows read ``fk_d``, the step's FK run on
+    Duals, for the Gauss-Newton term Jdot qvel of their aref (the
+    reference's jax.jvp), and take their impedance on the norm of the
+    whole residual."""
+    on = [e for e in range(model.neq)
+          if eq_act is not None or model.eq_active0[e]]
+    cw = _eq_cw_rows_sg(model, mc, fk_d, bd_mask, [
+        e for e in on
+        if EqType(model.eq_type[e]) in (EqType.CONNECT, EqType.WELD)])
+    vel_d = {e: [_jdotv(J, qvel) for (J, _, _) in cw[e]] for e in cw}
+    acc0 = iter(tangents([v for e in cw for v in vel_d[e]]))
+    ten_len, ten_mom, _ = ten
+    rows = []
+    for e in on:
+        et = EqType(model.eq_type[e])
+        poly = [float(x) for x in mc.eq_data[e][:5]]
+        o1, o2 = model.eq_obj1id[e], model.eq_obj2id[e]
+        if et == EqType.JOINT:
+            a1, v1 = model.jnt_qposadr[o1], model.jnt_dofadr[o1]
+            dif1 = sub(qpos[a1], float(mc.qpos0[a1]))
+            if o2 >= 0:
+                a2, v2 = model.jnt_qposadr[o2], model.jnt_dofadr[o2]
+                pval, dval = _horner(poly, sub(qpos[a2], float(mc.qpos0[a2])))
+                parts = [({v1: 1.0, v2: neg(dval)}, sub(dif1, pval),
+                          float(mc.dof_invweight0[v1]
+                                + mc.dof_invweight0[v2]))]
+            else:
+                parts = [({v1: 1.0}, sub(dif1, poly[0]),
+                          float(mc.dof_invweight0[v1]))]
+        elif et == EqType.TENDON:
+            dif1 = sub(ten_len[o1], float(mc.tendon_length0[o1]))
+            J = dict(ten_mom[o1])
+            if o2 >= 0:
+                pval, dval = _horner(
+                    poly, sub(ten_len[o2], float(mc.tendon_length0[o2])))
+                for dof, v2 in ten_mom[o2].items():
+                    J[dof] = sub(J.get(dof, 0.0), mul(dval, v2))
+                parts = [(J, sub(dif1, pval),
+                          float(mc.tendon_invweight0[o1]
+                                + mc.tendon_invweight0[o2]))]
+            else:
+                parts = [(J, sub(dif1, poly[0]),
+                          float(mc.tendon_invweight0[o1]))]
+        else:
+            parts = [(_primal(J), _primal(p), dap)
+                     for (J, p, dap) in cw[e]]
+        if et in (EqType.JOINT, EqType.TENDON):
+            k, b, imp = _kbi_const(bk, mc.eq_solref[e], mc.eq_solimp[e],
+                                   parts[0][1], h)
+            vels = [_jdotv(parts[0][0], qvel)]
+            accs = [0.0]
+        else:
+            res2 = 0.0
+            for (_, p, _) in parts:
+                res2 = fma(res2, p, p)
+            k, b, imp = _kbi_const(bk, mc.eq_solref[e], mc.eq_solimp[e],
+                                   bk.sqrt(bk.maximum(res2, 0.0)), h)
+            vels = [v.v if isinstance(v, Dual) else v for v in vel_d[e]]
+            accs = [next(acc0) for _ in parts]
+        for (J, pos, dap), vel, a0 in zip(parts, vels, accs):
+            aref = -b * vel - k * imp * pos
+            if not (_is_const(a0) and a0 == 0.0):
+                aref = aref - a0
+            rows.append(dict(J=J, pos=pos, aref=aref,
+                             D=imp / (1.0 - imp) / max(dap, 1e-12),
+                             exists=True if eq_act is None else eq_act[e],
+                             kind="eq"))
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -1567,16 +2039,21 @@ def _kbi_const(bk, solref, solimp, pos, h):
 
 
 def _assemble_rows(bk, model, mc, qpos, qvel, xpos, xmat, subtree_com, cdof,
-                   bd_mask, h, ten):
-    """Friction-loss, limit and contact rows as dicts with a sparse J, in
-    MuJoCo's row order: dof friction, tendon friction, joint limits,
-    tendon limits, contacts.  ``ten`` is the step's tendon (lengths,
-    moments, velocities).  Row kinds:
+                   bd_mask, h, ten, eq_act=None, fk_d=None):
+    """Equality, friction-loss, limit and contact rows as dicts with a
+    sparse J, in MuJoCo's row order: equality, dof friction, tendon
+    friction, joint limits, tendon limits, contacts.  ``ten`` is the
+    step's tendon (lengths, moments, velocities); ``eq_act`` and ``fk_d``
+    are :func:`_eq_rows`'.  Row kinds:
 
+    * ``eq`` (equality): f = -D jar where the row exists;
     * ``uni`` (limits, pyramid facets): f = max(-D jar, 0) on existing rows;
     * ``fri`` (friction loss, box-bounded): f = clip(-D jar, -floss, floss).
     """
     rows = []
+    if model.neq:
+        rows += _eq_rows(bk, model, mc, qpos, qvel, bd_mask, h, ten, eq_act,
+                         fk_d)
     ten_len, ten_mom, ten_vel = ten
 
     # dof friction loss (mjCNSTR_FRICTION_DOF): pos = 0 is a build-time
@@ -1763,9 +2240,132 @@ def _np_contacts_sg(bk, model, mc, ta, tb, g1, g2, xpos, xmat):
             out.append((dist, pos, n, t1u))
         return out
 
+    if ta == GeomType.PLANE and tb == GeomType.BOX:
+        # all 8 corners (collision._plane_box, lane for lane)
+        n = mat_col(m1, 2)
+        pn = dot3(n, p1)
+        out = []
+        for sx in (-1.0, 1.0):
+            for sy in (-1.0, 1.0):
+                for sz in (-1.0, 1.0):
+                    local = (sx * s2[0], sy * s2[1], sz * s2[2])
+                    corner = vadd3(p2, mat_vec(m2, local))
+                    dist = sub(dot3(n, corner), pn)
+                    pos = vsub3(corner, vscale3(n, mul(0.5, dist)))
+                    out.append((dist, pos, n, None))
+        return out
+
+    if ta == GeomType.PLANE and tb == GeomType.ELLIPSOID:
+        # the support point opposite the plane normal
+        # (collision._plane_ellipsoid)
+        n = mat_col(m1, 2)
+        a = mat_vec_t(m2, n)
+        w = tuple(mul(s2[i] * s2[i], a[i]) for i in range(3))
+        denom = bk.sqrt(bk.maximum(dot3(a, w), 1e-20))
+        x = vsub3(p2, mat_vec(m2, tuple(wi / denom for wi in w)))
+        dist = sub(dot3(n, x), dot3(n, p1))
+        pos = vsub3(x, vscale3(n, mul(0.5, dist)))
+        return [(dist, pos, n, None)]
+
+    if ta == GeomType.PLANE and tb == GeomType.CYLINDER:
+        # rim points of the downhill cap (collision._plane_cylinder)
+        n = mat_col(m1, 2)
+        r, hl = s2[0], s2[1]
+        axis = mat_col(m2, 2)
+        c = dot3(n, axis)
+        perp = vsub3(n, vscale3(axis, c))
+        plen = bk.sqrt(bk.maximum(dot3(perp, perp), 0.0))
+        altv = mat_col(m2, 0)
+        alt = vsub3(altv, vscale3(n, dot3(n, altv)))
+        altn = bk.sqrt(bk.maximum(dot3(alt, alt), 1e-24))
+        altu = tuple(ai / altn for ai in alt)
+        good = plen > 1e-10
+        safe = bk.where(good, plen, 1.0)
+        dir0 = tuple(bk.where(good, -pi_ / safe, au)
+                     for pi_, au in zip(perp, altu))
+        sgn = bk.where(c > 0, -1.0, 1.0)
+        cap_a = vadd3(p2, vscale3(axis, sgn * hl))
+        cap_b = vsub3(p2, vscale3(axis, sgn * hl))
+        crossd = cross3(axis, dir0)
+        root3_2 = math.sqrt(3.0) / 2.0
+        dir120 = vadd3(vscale3(dir0, -0.5), vscale3(crossd, root3_2))
+        dir240 = vsub3(vscale3(dir0, -0.5), vscale3(crossd, root3_2))
+        pts = [
+            vadd3(cap_a, vscale3(dir0, r)),
+            vadd3(cap_a, vscale3(dir120, r)),
+            vadd3(cap_a, vscale3(dir240, r)),
+            vadd3(cap_b, vscale3(dir0, r)),
+        ]
+        pn = dot3(n, p1)
+        out = []
+        for point in pts:
+            dist = sub(dot3(n, point), pn)
+            pos = vsub3(point, vscale3(n, mul(0.5, dist)))
+            out.append((dist, pos, n, None))
+        return out
+
     if ta == GeomType.SPHERE and tb == GeomType.SPHERE:
         dist, pos, n = _np_sphere_sphere_sg(bk, p1, s1[0], p2, s2[0])
         return [(dist, pos, n, None)]
+
+    if ta == GeomType.SPHERE and tb == GeomType.CAPSULE:
+        r2c, hl = s2[0], s2[1]
+        axis = mat_col(m2, 2)
+        closest = _np_seg_closest_sg(
+            bk, vsub3(p2, vscale3(axis, hl)), vadd3(p2, vscale3(axis, hl)),
+            p1)
+        dist, pos, n = _np_sphere_sphere_sg(bk, p1, s1[0], closest, r2c)
+        return [(dist, pos, n, None)]
+
+    if ta == GeomType.CAPSULE and tb == GeomType.CAPSULE:
+        r1c, hl1 = s1[0], s1[1]
+        r2c, hl2 = s2[0], s2[1]
+        ax1 = mat_col(m1, 2)
+        ax2 = mat_col(m2, 2)
+        q1, q2 = _np_seg_seg_sg(
+            bk, vsub3(p1, vscale3(ax1, hl1)), vadd3(p1, vscale3(ax1, hl1)),
+            vsub3(p2, vscale3(ax2, hl2)), vadd3(p2, vscale3(ax2, hl2)))
+        dist, pos, n = _np_sphere_sphere_sg(bk, q1, r1c, q2, r2c)
+        return [(dist, pos, n, None)]
+
+    if ta == GeomType.SPHERE and tb == GeomType.BOX:
+        dist, pos, n = _np_sphere_box_sg(bk, p1, s1[0], p2, m2, s2)
+        return [(dist, pos, n, None)]
+
+    if ta == GeomType.CAPSULE and tb == GeomType.BOX:
+        r, hl = s1[0], s1[1]
+        axis = mat_col(m1, 2)
+        a = vsub3(p1, vscale3(axis, hl))
+        b = vadd3(p1, vscale3(axis, hl))
+        # the segment point nearest the box: 8 fixed alternating-projection
+        # iterations (collision._capsule_box)
+        t = 0.5
+        seg = vsub3(b, a)
+        denom = bk.maximum(dot3(seg, seg), 1e-12)
+        for _ in range(8):
+            p = vadd3(a, vscale3(seg, t))
+            q_local = tuple(
+                bk.clip(mat_vec_t(m2, vsub3(p, p2))[i], -s2[i], s2[i])
+                for i in range(3))
+            q = vadd3(p2, mat_vec(m2, q_local))
+            t = bk.clip(dot3(vsub3(q, a), seg) / denom, 0.0, 1.0)
+        mid = vadd3(a, vscale3(seg, t))
+        cands = [_np_sphere_box_sg(bk, point, r, p2, m2, s2)
+                 for point in (a, b, mid)]
+        # the mid lane fires only when strictly deeper than both end lanes
+        # (the segment across an edge); else it would repeat an endpoint's
+        # contact and double its force against MuJoCo's
+        d_mid = cands[2][0]
+        redundant = d_mid >= bk.minimum(cands[0][0], cands[1][0]) - 1e-10
+        d_mid = bk.where(redundant, 1e10, d_mid)
+        return [
+            (cands[0][0], cands[0][1], cands[0][2], None),
+            (cands[1][0], cands[1][1], cands[1][2], None),
+            (d_mid, cands[2][1], cands[2][2], None),
+        ]
+
+    if ta == GeomType.BOX and tb == GeomType.BOX:
+        return _np_box_box_sg(bk, p1, m1, s1, p2, m2, s2)
 
     raise ValueError(
         f"pair type {ta.name}-{tb.name} not in the port's scalar-graph class"
@@ -1783,6 +2383,290 @@ def _np_sphere_sphere_sg(bk, p1, r1, p2, r2):
     dist = sub(d, r1 + r2)
     pos = vadd3(p1, vscale3(n, add(r1, mul(0.5, dist))))
     return dist, pos, n
+
+
+def _np_seg_closest_sg(bk, a, b, p):
+    """collision._closest_on_segment in scalar form."""
+    ab = vsub3(b, a)
+    denom = dot3(ab, ab)
+    good = denom > 1e-16
+    safe = bk.where(good, denom, 1.0)
+    t = bk.clip(bk.where(good, dot3(vsub3(p, a), ab) / safe, 0.0), 0.0, 1.0)
+    return vadd3(a, vscale3(ab, t))
+
+
+def _np_seg_seg_sg(bk, a1, b1, a2, b2):
+    """collision._segment_segment in scalar form (same clamping order)."""
+    d1 = vsub3(b1, a1)
+    d2 = vsub3(b2, a2)
+    r = vsub3(a1, a2)
+    a = dot3(d1, d1)
+    e = dot3(d2, d2)
+    f = dot3(d2, r)
+    c = dot3(d1, r)
+    b = dot3(d1, d2)
+    denom = sub(mul(a, e), mul(b, b))
+    gd = denom > 1e-14
+    sd = bk.where(gd, denom, 1.0)
+    s = bk.where(gd, bk.clip(sub(mul(b, f), mul(c, e)) / sd, 0.0, 1.0), 0.0)
+    ge = e > 1e-14
+    se = bk.where(ge, e, 1.0)
+    t = bk.where(ge, add(mul(b, s), f) / se, 0.0)
+    t_cl = bk.clip(t, 0.0, 1.0)
+    ga = a > 1e-14
+    sa = bk.where(ga, a, 1.0)
+    s = bk.where(
+        bk.abs(t - t_cl) > 0,
+        bk.clip(bk.where(ga, sub(mul(b, t_cl), c) / sa, 0.0), 0.0, 1.0),
+        s,
+    )
+    return vadd3(a1, vscale3(d1, s)), vadd3(a2, vscale3(d2, t_cl))
+
+
+def _np_sphere_box_sg(bk, spos, r, bpos, bmat, bsize):
+    """collision._sphere_box in scalar form, with the inside branch's
+    first-minimum axis tie-break of jnp.argmin."""
+    local = mat_vec_t(bmat, vsub3(spos, bpos))
+    clamped = tuple(bk.clip(local[i], -bsize[i], bsize[i]) for i in range(3))
+    inside = ((bk.abs(local[0]) < bsize[0])
+              & (bk.abs(local[1]) < bsize[1])
+              & (bk.abs(local[2]) < bsize[2]))
+    closest_out = vadd3(bpos, mat_vec(bmat, clamped))
+    delta = vsub3(spos, closest_out)
+    dn = bk.sqrt(bk.maximum(dot3(delta, delta), 0.0))
+    gd = dn > 1e-12
+    sdn = bk.where(gd, dn, 1.0)
+    zcol = mat_col(bmat, 2)
+    n_out = tuple(bk.where(gd, delta[i] / sdn, zcol[i]) for i in range(3))
+    dist_out = sub(dn, r)
+    depth = tuple(sub(bsize[i], bk.abs(local[i])) for i in range(3))
+    is0 = (depth[0] <= depth[1]) & (depth[0] <= depth[2])
+    is1 = bk.not_(is0) & (depth[1] <= depth[2])
+    sgn = tuple(bk.sign(local[i]) for i in range(3))
+    cols = [mat_col(bmat, i) for i in range(3)]
+    n_in = tuple(
+        bk.where(is0, sgn[0] * cols[0][kk],
+                 bk.where(is1, sgn[1] * cols[1][kk], sgn[2] * cols[2][kk]))
+        for kk in range(3)
+    )
+    depth_min = bk.where(is0, depth[0], bk.where(is1, depth[1], depth[2]))
+    dist_in = -(depth_min + r)
+    dist = bk.where(inside, dist_in, dist_out)
+    n = tuple(bk.where(inside, -n_in[kk], neg(n_out[kk])) for kk in range(3))
+    pos = vadd3(spos, vscale3(n, add(r, mul(0.5, dist))))
+    return dist, pos, n
+
+
+def _first_true(bk, masks):
+    """Each mask and-ed with "no earlier mask holds": a one-hot pick of the
+    first true mask (the tie-break of jnp.argmin/argmax)."""
+    out, prior = [], None
+    for m in masks:
+        out.append(m if prior is None else (m & bk.not_(prior)))
+        prior = m if prior is None else (prior | m)
+    return out
+
+
+def _np_box_box_sg(bk, p1, m1, s1, p2, m2, s2):
+    """Scalar twin of collision._box_box: SAT over the 6 face axes, then
+    the incident face clipped against the reference rectangle.  24
+    candidate lanes (4 incident corners, 4 rectangle corners, 16 edge
+    intersections, deduplicated) compact to the same 8 lanes as the
+    general path's top_k (score = valid - idx 1e-6, so lane assignment
+    matches exactly), plus the deepest-corner fallback on lane 0."""
+    where, babs = bk.where, bk.abs
+    d12 = vsub3(p2, p1)
+    axes = ([mat_col(m1, a) for a in range(3)]
+            + [mat_col(m2, a) for a in range(3)])
+    overlaps = []
+    for a in range(6):
+        r1 = sum_scalars([babs(bk.full(dot3(axes[a], mat_col(m1, kk))))
+                          * s1[kk] for kk in range(3)])
+        r2 = sum_scalars([babs(bk.full(dot3(axes[a], mat_col(m2, kk))))
+                          * s2[kk] for kk in range(3)])
+        sep = babs(bk.full(dot3(axes[a], d12)))
+        overlaps.append(r1 + r2 - sep)
+    best = overlaps[0]
+    for a in range(1, 6):
+        best = bk.minimum(best, overlaps[a])
+    wk = _first_true(bk, [bk.eq(o, best) for o in overlaps])
+
+    def sel6(vals):
+        out = vals[5]
+        for a in range(4, -1, -1):
+            out = where(wk[a], vals[a], out)
+        return out
+
+    ref_is_1 = wk[0] | wk[1] | wk[2]
+    nref = tuple(sel6([axes[a][i] for a in range(6)]) for i in range(3))
+    nd = bk.full(dot3(nref, d12))
+    sgn = bk.sign(where(ref_is_1, nd, -nd))
+    sgn = where(bk.eq(sgn, 0.0), 1.0, sgn)
+    nref = vscale3(nref, sgn)
+
+    def selb(x1, x2):
+        return where(ref_is_1, x1, x2)
+
+    pr = tuple(selb(p1[i], p2[i]) for i in range(3))
+    mr = tuple(selb(m1[i], m2[i]) for i in range(9))
+    sr = tuple(selb(s1[i], s2[i]) for i in range(3))
+    pi_ = tuple(selb(p2[i], p1[i]) for i in range(3))
+    mi = tuple(selb(m2[i], m1[i]) for i in range(9))
+    si = tuple(selb(s2[i], s1[i]) for i in range(3))
+
+    wkr = [wk[0] | wk[3], wk[1] | wk[4], wk[2] | wk[5]]
+
+    def sel3(w3, vals):
+        return where(w3[0], vals[0], where(w3[1], vals[1], vals[2]))
+
+    # in-plane axes of the reference face: kr=0 -> (1,2), 1 -> (0,2),
+    # 2 -> (0,1)
+    u = tuple(where(wkr[0], mat_col(mr, 1)[i], mat_col(mr, 0)[i])
+              for i in range(3))
+    v = tuple(where(wkr[2], mat_col(mr, 1)[i], mat_col(mr, 2)[i])
+              for i in range(3))
+    su = where(wkr[0], sr[1], sr[0])
+    sv = where(wkr[2], sr[1], sr[2])
+    srk = sel3(wkr, list(sr))
+    face_c = vadd3(pr, vscale3(nref, srk))
+
+    # incident face: outward normal most anti-parallel to nref
+    dots = [bk.full(dot3(mat_col(mi, jj), nref)) for jj in range(3)]
+    absd = [babs(x) for x in dots]
+    bestd = bk.maximum(bk.maximum(absd[0], absd[1]), absd[2])
+    wji = _first_true(bk, [bk.eq(x, bestd) for x in absd])
+    dji = sel3(wji, dots)
+    jsgn = -bk.sign(dji)
+    jsgn = where(bk.eq(jsgn, 0.0), 1.0, jsgn)
+    inc_n = vscale3(
+        tuple(sel3(wji, [mat_col(mi, jj)[i] for jj in range(3)])
+              for i in range(3)),
+        jsgn,
+    )
+    sji = sel3(wji, list(si))
+    inc_c = vadd3(pi_, vscale3(inc_n, sji))
+    e1ax = tuple(where(wji[0], mat_col(mi, 1)[i], mat_col(mi, 0)[i])
+                 for i in range(3))
+    e2ax = tuple(where(wji[2], mat_col(mi, 1)[i], mat_col(mi, 2)[i])
+                 for i in range(3))
+    e1s = where(wji[0], si[1], si[0])
+    e2s = where(wji[2], si[1], si[2])
+    e1 = vscale3(e1ax, e1s)
+    e2 = vscale3(e2ax, e2s)
+    signs = ((1.0, 1.0), (1.0, -1.0), (-1.0, -1.0), (-1.0, 1.0))
+    corners = [vadd3(inc_c, vadd3(vscale3(e1, a_), vscale3(e2, b_)))
+               for (a_, b_) in signs]
+    rels = [vsub3(c, face_c) for c in corners]
+    qu = [bk.full(dot3(r_, u)) for r_ in rels]
+    qv = [bk.full(dot3(r_, v)) for r_ in rels]
+    qh = [bk.full(dot3(r_, nref)) for r_ in rels]
+
+    # affine h(u, v) from three corners
+    du1 = (qu[1] - qu[0], qv[1] - qv[0])
+    du2 = (qu[3] - qu[0], qv[3] - qv[0])
+    dh1 = qh[1] - qh[0]
+    dh2 = qh[3] - qh[0]
+    det = du1[0] * du2[1] - du1[1] * du2[0]
+    safe_det = where(babs(det) > 1e-12, det, 1.0)
+    gu = (dh1 * du2[1] - dh2 * du1[1]) / safe_det
+    gv = (dh2 * du1[0] - dh1 * du2[0]) / safe_det
+    h0 = qh[0] - gu * qu[0] - gv * qv[0]
+
+    cands = []  # (pu, pv, valid)
+    for i in range(4):  # incident corners inside the rectangle
+        ok = (babs(qu[i]) <= su + 1e-10) & (babs(qv[i]) <= sv + 1e-10)
+        cands.append((qu[i], qv[i], ok))
+    rect = [(su, sv), (su, -sv), (-su, -sv), (-su, sv)]
+    for (px, py) in rect:  # rectangle corners inside the quad
+        crosses = []
+        for i in range(4):
+            ax_, ay_ = qu[i], qv[i]
+            bx_, by_ = qu[(i + 1) % 4], qv[(i + 1) % 4]
+            crosses.append((bx_ - ax_) * (py - ay_)
+                           - (by_ - ay_) * (px - ax_))
+        all_pos = crosses[0] >= -1e-10
+        all_neg = crosses[0] <= 1e-10
+        for c_ in crosses[1:]:
+            all_pos = all_pos & (c_ >= -1e-10)
+            all_neg = all_neg & (c_ <= 1e-10)
+        cands.append((px, py, all_pos | all_neg))
+    for i in range(4):  # quad edges x rectangle edges
+        ax_, ay_ = qu[i], qv[i]
+        abx = qu[(i + 1) % 4] - ax_
+        aby = qv[(i + 1) % 4] - ay_
+        for rj in range(4):
+            cx, cy = rect[rj]
+            dx_, dy_ = rect[(rj + 1) % 4]
+            cdx, cdy = dx_ - cx, dy_ - cy
+            den = abx * cdy - aby * cdx
+            safe = where(babs(den) > 1e-12, den, 1.0)
+            t_ = ((cx - ax_) * cdy - (cy - ay_) * cdx) / safe
+            sly = ((cx - ax_) * aby - (cy - ay_) * abx) / safe
+            ok = ((babs(den) > 1e-12) & (t_ >= 0) & (t_ <= 1)
+                  & (sly >= 0) & (sly <= 1))
+            cands.append((ax_ + t_ * abx, ay_ + t_ * aby, ok))
+
+    # dedup coincident candidates: keep the first valid representative
+    valid = [c[2] for c in cands]
+    for i in range(1, 24):
+        dup = None
+        for jj in range(i):
+            du_ = cands[i][0] - cands[jj][0]
+            dv_ = cands[i][1] - cands[jj][1]
+            dd = (du_ * du_ + dv_ * dv_ < 1e-16) & valid[jj]
+            dup = dd if dup is None else (dup | dd)
+        valid[i] = valid[i] & bk.not_(dup)
+
+    # compact to 8 lanes by repeated argmax of score = valid - idx 1e-6,
+    # the general path's top_k lane assignment
+    scores = [where(valid[i], 1.0, 0.0) - i * 1e-6 for i in range(24)]
+    taken = [False] * 24
+    out = []
+    for _lane in range(8):
+        eff = [where(taken[i], -1e9, scores[i]) for i in range(24)]
+        best_s = eff[0]
+        for i in range(1, 24):
+            best_s = bk.maximum(best_s, eff[i])
+        pick = _first_true(bk, [bk.eq(e_, best_s) for e_ in eff])
+        pu, pv, pval = cands[23][0], cands[23][1], valid[23]
+        for i in range(22, -1, -1):
+            pu = where(pick[i], cands[i][0], pu)
+            pv = where(pick[i], cands[i][1], pv)
+            pval = (pick[i] & valid[i]) | (bk.not_(pick[i]) & pval)
+        taken = [taken[i] | pick[i] for i in range(24)]
+        out.append((pu, pv, pval))
+
+    n_contact = vscale3(nref, where(ref_is_1, 1.0, -1.0))
+    lanes = []
+    any_valid = None
+    for (pu, pv, pval) in out:
+        hh = h0 + gu * pu + gv * pv
+        world = vadd3(face_c, vadd3(vscale3(u, pu),
+                                    vadd3(vscale3(v, pv),
+                                          vscale3(nref, hh))))
+        pos = vsub3(world, vscale3(nref, 0.5 * hh))
+        lanes.append([where(pval, hh, 1e10), pos, n_contact])
+        any_valid = pval if any_valid is None else (any_valid | pval)
+
+    # edge-dominant fallback on lane 0: the deepest incident corner
+    none_valid = bk.not_(any_valid)
+    dh_best = qh[0]
+    du_best, dv_best = qu[0], qv[0]
+    for i in range(1, 4):
+        deeper = qh[i] < dh_best
+        du_best = where(deeper, qu[i], du_best)
+        dv_best = where(deeper, qv[i], dv_best)
+        dh_best = where(deeper, qh[i], dh_best)
+    dpu = bk.clip(du_best, -su, su)
+    dpv = bk.clip(dv_best, -sv, sv)
+    deep_world = vadd3(face_c, vadd3(vscale3(u, dpu),
+                                     vadd3(vscale3(v, dpv),
+                                           vscale3(nref, dh_best))))
+    deep_pos = vsub3(deep_world, vscale3(nref, 0.5 * dh_best))
+    lanes[0][0] = where(none_valid, dh_best, lanes[0][0])
+    lanes[0][1] = tuple(where(none_valid, deep_pos[i], lanes[0][1][i])
+                        for i in range(3))
+    return [(d_, p_, n_, None) for (d_, p_, n_) in lanes]
 
 
 def _lane_to_pair(model, lane):
@@ -1864,11 +2748,16 @@ def _row_force_act(bk, r, jar_r):
     uni: f = max(-D jar, 0) on existing rows;
     fri: f = clip(-D jar, -floss, floss) -- the quadratic zone is
     |D jar| < floss, outside it the cost is linear (MuJoCo's friction-row
-    Huber cost)."""
+    Huber cost); eq: f = -D jar on existing rows (bilateral)."""
     if r.get("kind") == "fri":
         fl = r["floss"]
         g = r["D"] * jar_r
         return bk.clip(-g, -fl, fl), bk.abs(g) < fl
+    if r.get("kind") == "eq":
+        ex = r["exists"]
+        if ex is True:
+            return -r["D"] * jar_r, True
+        return bk.where(ex, -r["D"] * jar_r, 0.0), ex
     act = r["exists"] & (jar_r < 0)
     return bk.where(act, -r["D"] * jar_r, 0.0), act
 
@@ -1883,6 +2772,9 @@ def _dphi_stacked(bk, rows, jar, jp, d0, sg):
     neg_d = st([-r["D"] for r in rows])
     exists = st([r["exists"] for r in rows])
     fri = [r.get("kind") == "fri" for r in rows]
+    # an eq row is active wherever it exists
+    is_eq = [r.get("kind") == "eq" for r in rows]
+    is_eq = st(is_eq) if any(is_eq) else None
     if any(fri):
         # a friction row's clip(-(D jar), -fl, fl): -(D jar) == (-D) jar
         # bit for bit, so both kinds share neg_d * jar_a
@@ -1893,7 +2785,8 @@ def _dphi_stacked(bk, rows, jar, jp, d0, sg):
     def dphi(alpha):
         s = d0 + alpha * sg
         jar_a = jar_s + alpha * jp_s
-        act = exists & (jar_a < 0)
+        below = jar_a < 0
+        act = exists & (below if is_eq is None else below | is_eq)
         g = neg_d * jar_a
         f_a = torch.where(act, g, torch.zeros_like(jar_a))
         if any(fri):
@@ -1907,6 +2800,9 @@ def _dphi_stacked(bk, rows, jar, jp, d0, sg):
 
 
 def _row_cost(bk, r, jar_r):
+    if r.get("kind") == "eq":
+        c = 0.5 * r["D"] * jar_r * jar_r
+        return c if r["exists"] is True else bk.where(r["exists"], c, 0.0)
     if r.get("kind") == "fri":
         fl = r["floss"]
         g = r["D"] * jar_r

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import convert
 from ..api.environment import BatchedEnvironment
 from ..ops import megakernel as mk
 from ..ops import scalar_graph as sg
@@ -95,12 +96,29 @@ class FastRollout:
             data.time[None, :],
         ))
 
-    def run(self, state, generator: torch.Generator):
+    def run(self, state, generator: torch.Generator, eq_active=None):
         """One K-step kernel call -> ``(new_state, Trajectory)``.  The
-        policy's current weights are the call's inputs."""
+        policy's current weights are the call's inputs.  A model with
+        equality constraints takes ``eq_active (B, neq)``, 0/1 per env and
+        equality (Data.eq_active; default the model's eq_active0); a model
+        without raises if it is given."""
         model = self.benv.model
         b = self.benv.num_envs
         dtype = state[0].dtype
+        if model.neq == 0 and eq_active is not None:
+            raise ValueError("eq_active given for a model without equality "
+                             "constraints")
+        if model.neq:
+            if eq_active is None:
+                eq_active = torch.tensor(
+                    [float(x) for x in model.eq_active0], dtype=dtype,
+                    device=self.device).expand(b, -1)
+            if tuple(eq_active.shape) != (b, model.neq):
+                raise ValueError(f"eq_active must have shape "
+                                 f"{(b, model.neq)}, not "
+                                 f"{tuple(eq_active.shape)}")
+            eq_active = convert.eq_active_to_kernel(eq_active, dtype,
+                                                    self.device)
         ctrl = params = None
         if self.policy is None:
             ctrl = torch.empty((self.steps_per_call, max(model.nu, 1), b),
@@ -110,7 +128,7 @@ class FastRollout:
             params = self.policy.kernel_params()
         seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
                              device=self.device, dtype=torch.int32)
-        out = self.kernel(*state, ctrl, seed, params)
+        out = self.kernel(*state, ctrl, seed, params, eq_active)
         traj = Trajectory(reward_sum=out[5][0], diverged=out[6][0])
         if self.collect:
             traj.obs, traj.rewards, traj.dones = out[7:10]

@@ -222,3 +222,63 @@ def test_wrap_search_is_loops():
 ])
 def test_emitter_literals(lit, want):
     assert Emitter("float").lit(lit) == want
+
+
+@pytest.mark.parametrize("name", ["fourbar", "arms", "box_stack"])
+def test_emitted_equality_and_pairs_match_torch_backend(name, tmp_path):
+    """The equality rows (fourbar, with its eq lanes mixed: the connect
+    off in every other env) and the new narrowphase pairs (arms, box-box
+    on box-stack) through g++ in double, within 1e-9 of the torch
+    backend over 3 steps."""
+    from test_torch_pairs import XMLS as PAIR_XMLS
+
+    from oxide_control_torch import bench_configs
+
+    xml = dict(PAIR_XMLS, fourbar=bench_configs.FOURBAR_XML)[name]
+    m = load_model_from_xml(xml)
+    neq = m.neq
+    src = mk.kernel_source(m, _hooks(m), "double").text
+    eq_arg = "eq + b * OXC_NEQ, " if neq else ""
+    src += r"""
+extern "C" void step_batch(const double* q, const double* v, const double* a,
+                           const double* w, const double* c, const bool* eq,
+                           double* qo, double* vo, double* ao, double* wo,
+                           int n) {
+  for (int b = 0; b < n; ++b)
+    oxc_step(q + b * OXC_NQ, v + b * OXC_NV, a + b * OXC_NA, w + b * OXC_NV,
+             c + b * OXC_NU, %s qo + b * OXC_NQ, vo + b * OXC_NV,
+             ao + b * OXC_NA, wo + b * OXC_NV);
+}
+""" % eq_arg
+    lib, _ = _gxx(src, tmp_path)
+    rng = np.random.default_rng(5)
+    qpos = np.tile(np.asarray(m.qpos0), (B, 1)) + rng.uniform(
+        -0.05, 0.05, (B, m.nq))
+    for j in range(m.njnt):
+        if m.jnt_type[j] == 0:
+            a = m.jnt_qposadr[j] + 3
+            qpos[:, a:a + 4] /= np.linalg.norm(qpos[:, a:a + 4], axis=1,
+                                               keepdims=True)
+    qvel = rng.uniform(-1, 1, (B, m.nv))
+    ctrl = rng.uniform(-1, 1, (B, m.nu))
+    act, ws = np.zeros((B, m.na)), np.zeros((B, m.nv))
+    eq = np.ones((B, max(neq, 1)), dtype=bool)
+    eq[::2, 0] = False
+    step = sg.build_step(m, sg.TorchBackend(B, torch.float64, "cpu"))
+    lanes = ([torch.tensor(eq[:, e]) for e in range(neq)] if neq
+             else None)
+    q, v, a, w, c = (_cols(x) for x in (qpos, qvel, act, ws, ctrl))
+    cq, cv, ca, cw, cc = (np.ascontiguousarray(x)
+                          for x in (qpos, qvel, act, ws, ctrl))
+    ce = np.ascontiguousarray(eq)
+    ptr = lambda x: x.ctypes.data_as(ctypes.c_void_p)
+    for _ in range(3):
+        q, v, a, w = step(q, v, a, w, c, lanes)
+        qo, vo, ao, wo = (np.zeros_like(x) for x in (cq, cv, ca, cw))
+        lib.step_batch(ptr(cq), ptr(cv), ptr(ca), ptr(cw), ptr(cc),
+                       ptr(ce), ptr(qo), ptr(vo), ptr(ao), ptr(wo),
+                       ctypes.c_int(B))
+        cq, cv, ca, cw = qo, vo, ao, wo
+        np.testing.assert_allclose(cq, _stack(q), rtol=0, atol=1e-9)
+        np.testing.assert_allclose(cv, _stack(v), rtol=0, atol=1e-9)
+        np.testing.assert_allclose(cw, _stack(w), rtol=0, atol=1e-9)

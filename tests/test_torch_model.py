@@ -135,10 +135,12 @@ def _two_links(opt="", mocap="", geom="sphere", extra=""):
 
 _REFUSED = dict(
     ball=_BALL,
-    equality=_two_links(extra='<equality><joint joint1="h1" joint2="h2"/>'
-                        '</equality>'),
+    condim4=_two_links().replace('<geom type="capsule"',
+                                 '<geom type="capsule" condim="4"'),
     elliptic=_two_links(opt='cone="elliptic"'),
-    box_pair=_two_links(geom="box"),
+    cylinder_pair=_two_links().replace(
+        "</worldbody>", '<body pos="1 0 1"><joint type="hinge"/><geom '
+        'type="cylinder" size="0.1 0.1"/></body></worldbody>'),
     fluid=_two_links(opt='density="1.2"'),
     refsite=_two_links(extra='<actuator><general site="s2" refsite="s1" '
                        'gear="1 0 0 0 0 0"/></actuator>'),
@@ -152,9 +154,9 @@ _IMPLICIT = HOPPER_XML.replace('<option timestep="0.01"',
 
 
 @pytest.mark.parametrize("name,row", [
-    ("ball", "Queue A item 10"), ("equality", "Queue A item 10.2"),
+    ("ball", "Queue A item 10"), ("condim4", "Queue A item 10.4"),
     ("implicit", "Queue A item 11"), ("elliptic", "Queue A item 10.4"),
-    ("box_pair", "Queue A item 10.3"), ("fluid", "Queue A item 10.6"),
+    ("cylinder_pair", "Queue A item 11"), ("fluid", "Queue A item 10.6"),
     ("mocap", "Queue A item 10.8"), ("refsite", "Queue A item 11"),
 ])
 def test_unsupported_models_name_their_roadmap_row(name, row):
