@@ -1,15 +1,18 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: ``python3 chip_smoke.py``.
 
 Drives the port's main path -- ``FastRollout`` through the hand-written
-CUDA rollout kernel on nine rows of the reference bench: cheetah-run@4096
+CUDA rollout kernel on eleven rows of the reference bench: cheetah-run@4096
 and walker-walk@4096 (K = 200), cartpole-swingup@1024 (K = 200, RK4),
 arm-muscle-wrap@4096, fourbar-equality@4096 (connect and joint
-equalities, eq_active lanes) and arms-self-collide@4096 (capsule and
-sphere pairs), all K = 200 from ``oxide_control_torch.bench_configs``,
-humanoid-run@8192 (K = 100, free root joint) with uniform ctrl, and the
-in-kernel (64, 64) policy collecting trajectories on cheetah (K = 200)
-and humanoid (K = 100) -- after building every kernel from the sources in
-this checkout and holding each against its plain PyTorch version.
+equalities, eq_active lanes), arms-self-collide@4096 (capsule and sphere
+pairs) and cable-swing@4096 (six ball joints, reset noise on every
+quaternion coordinate), all K = 200 from
+``oxide_control_torch.bench_configs``, cheetah-run-elliptic@4096 (K = 50,
+elliptic cones), humanoid-run@8192 (K = 100, free root joint) with
+uniform ctrl, and the in-kernel (64, 64) policy collecting trajectories
+on cheetah (K = 200) and humanoid (K = 100) -- after building every kernel
+from the sources in this checkout and holding each against its plain
+PyTorch version.
 Phases, each fatal on failure:
 
 1. device: the card's name and power limit;
@@ -34,9 +37,11 @@ bench row at K = 200: pendulum-swingup@1024, walker-walk-tendon@4096
 stateful-actuators@1024 (filter, filterexact and integrator actuators),
 fourbar eq-toggle@4096 (the connect off on every other env through
 eq_active), weld@1024, tendon-equality@1024, box-pairs@1024,
-plane-box-cyl-ellipsoid@1024 and box-stack@1024 (box-box SAT); and the
-two options off the main path (exploration noise, Gaussian reset noise)
-at K = 24.
+plane-box-cyl-ellipsoid@1024, box-stack@1024 (box-box SAT),
+ball-limit-spring@1024, ball-free-actuators@1024, weld-ball@1024,
+condim46@1024 (pyramidal torsional and rolling friction),
+elliptic-condim4@1024 and elliptic-condim6@1024; and the two options off
+the main path (exploration noise, Gaussian reset noise) at K = 24.
 
 Needs one CUDA card; exits non-zero without one.
 """
@@ -101,9 +106,10 @@ WALKER_TENDON = """
 
 
 # parity models of the equality and narrowphase pairs, run with the bench
-# task: the reference tests' models (tests/test_scalar_graph.py:318-339,
-# the weld, with the ball-jointed blob on a free joint, since ball joints
-# are not ported yet; :703-732, :387-419, :740-785 and :926-957)
+# task without reset noise on quaternions: the reference tests' models
+# (tests/test_scalar_graph.py:318-339, the weld, here with the blob on a
+# free joint; WELD_BALL_XML below has the reference's ball joint; :703-732,
+# :387-419, :740-785 and :926-957)
 WELD_XML = """
     <mujoco>
       <option solver="Newton" iterations="10" tolerance="0"/>
@@ -223,6 +229,95 @@ BOX_STACK_XML = """
     </mujoco>
     """
 
+# parity models of ball joints, condim 4/6 and elliptic cones, run with the
+# bench task (reset noise on every coordinate, quaternions included): the
+# reference tests' models (tests/test_scalar_graph.py:641-697, a limited,
+# sprung ball wrist under a hinge; :987-1040, actuators on a ball and a
+# free joint; :318-339, the weld to a ball-jointed blob; :786-812, condim
+# 4 and 6 pyramids; :1043-1074, elliptic cones at condim 4 and 6)
+BALL_LIMIT_XML = """
+    <mujoco>
+      <option solver="Newton" iterations="8" tolerance="0"/>
+      <worldbody>
+        <geom name="floor" type="plane" size="5 5 .1"/>
+        <body pos="0 0 0.8">
+          <joint name="root" type="hinge" axis="0 1 0" damping="0.2"/>
+          <geom type="capsule" fromto="0 0 0 0.25 0 0" size="0.04" mass="1"/>
+          <body pos="0.25 0 0">
+            <joint name="wrist" type="ball" damping="0.05" stiffness="1.5"
+                   limited="true" range="0 50"/>
+            <geom type="sphere" size="0.05" mass="0.3"/>
+          </body>
+        </body>
+      </worldbody>
+      <actuator><motor joint="root" gear="2"/></actuator>
+    </mujoco>
+    """
+BALL_FREE_XML = """
+    <mujoco>
+      <option timestep="0.002" solver="Newton" iterations="6" tolerance="0"/>
+      <worldbody>
+        <body pos="0 0 1">
+          <joint name="b" type="ball" damping="0.05"/>
+          <geom type="capsule" fromto="0 0 0 0.3 0 0" size="0.03" mass="0.5"/>
+        </body>
+        <body pos="1 0 1">
+          <joint name="f" type="free"/>
+          <geom type="box" size="0.1 0.08 0.06" mass="1" pos="0.02 0 0"/>
+        </body>
+      </worldbody>
+      <actuator>
+        <motor joint="b" gear="1 0.5 0.2"/>
+        <general joint="b" gear="0.3 1 0" biastype="affine"
+                 biasprm="0 -2 -0.1"/>
+        <motor joint="f" gear="0 0 4 0 0 0.5"/>
+        <motor joint="f" gear="1 0 0 0.3 0 0"/>
+      </actuator>
+    </mujoco>
+    """
+WELD_BALL_XML = WELD_XML.replace(
+    "<freejoint/>", '<joint type="ball" damping="0.05"/>')
+CONDIM46_XML = """
+    <mujoco>
+      <option solver="Newton" iterations="10" tolerance="0"/>
+      <worldbody>
+        <geom name="floor" type="plane" size="5 5 .1"/>
+        <body pos="0 0 0.12">
+          <freejoint/>
+          <geom type="sphere" size="0.12" mass="1" condim="6"
+                friction="1 0.02 0.005"/>
+        </body>
+        <body pos="0.5 0 0.1">
+          <freejoint/>
+          <geom type="sphere" size="0.1" mass="0.5" condim="4"
+                friction="0.8 0.05"/>
+        </body>
+      </worldbody>
+    </mujoco>
+    """
+ELLIPTIC_XML = """
+        <mujoco>
+          <option timestep="0.002" solver="Newton" iterations="8"
+                  tolerance="0" cone="elliptic" impratio="1.3"/>
+          <worldbody>
+            <geom name="floor" type="plane" size="5 5 .1"
+                  friction="{fric}" condim="{condim}"/>
+            <body pos="0 0 0.12">
+              <freejoint/>
+              <geom type="box" size="0.1 0.08 0.12" mass="0.6"
+                    friction="{fric}" condim="{condim}"/>
+            </body>
+            <body pos="0.4 0 0.08">
+              <freejoint/>
+              <geom type="sphere" size="0.08" mass="0.3"
+                    friction="{fric}" condim="{condim}"/>
+            </body>
+          </worldbody>
+        </mujoco>
+        """
+ELLIPTIC4_XML = ELLIPTIC_XML.format(condim=4, fric="1 0.01 0.0001")
+ELLIPTIC6_XML = ELLIPTIC_XML.format(condim=6, fric="1 0.008 0.002")
+
 
 class QuatSafeBenchTask(bench_configs.BenchTask):
     """The bench task without reset noise on quaternion coordinates (a
@@ -250,6 +345,13 @@ class QuatSafeBenchTask(bench_configs.BenchTask):
 def bench_env(xml, batch, device=None):
     return BatchedEnvironment(load_model_from_xml(xml, np.float32),
                               QuatSafeBenchTask(), batch, device=device)
+
+
+def ball_env(xml, batch, device=None):
+    """The bench task itself, reset noise on quaternions included."""
+    return BatchedEnvironment(load_model_from_xml(xml, np.float32),
+                              bench_configs.BenchTask(), batch,
+                              device=device)
 
 
 def walker_tendon_env(batch, device=None):
@@ -285,6 +387,15 @@ ENVS = {
     "box-pairs": lambda: bench_env(BOX_PAIRS_XML, 1024),
     "plane-shapes": lambda: bench_env(PLANE_SHAPES_XML, 1024),
     "box-stack": lambda: bench_env(BOX_STACK_XML, 1024),
+    "cable/swing": lambda: bench_configs.load_config("cable", "swing", 4096),
+    "cheetah/run-elliptic": lambda: bench_configs.load_config(
+        "cheetah", "run-elliptic", 4096),
+    "ball-limit-spring": lambda: ball_env(BALL_LIMIT_XML, 1024),
+    "ball-free-actuators": lambda: ball_env(BALL_FREE_XML, 1024),
+    "weld-ball": lambda: ball_env(WELD_BALL_XML, 1024),
+    "condim46": lambda: ball_env(CONDIM46_XML, 1024),
+    "elliptic-condim4": lambda: ball_env(ELLIPTIC4_XML, 1024),
+    "elliptic-condim6": lambda: ball_env(ELLIPTIC6_XML, 1024),
 }
 # the main path's rows: (name, task, K, in-kernel policy + collection)
 ROWS = (
@@ -295,6 +406,8 @@ ROWS = (
     ("arm-muscle-wrap@4096", "arm/muscle-wrap", 200, False),
     ("fourbar-equality@4096", "fourbar/equality", 200, False),
     ("arms-self-collide@4096", "arms/self-collide", 200, False),
+    ("cable-swing@4096", "cable/swing", 200, False),
+    ("cheetah-run-elliptic@4096", "cheetah/run-elliptic", 50, False),
     ("humanoid-run@8192", "humanoid/run", 100, False),
     ("humanoid-run-policy-obs@8192", "humanoid/run", 100, True),
 )
@@ -311,6 +424,12 @@ EXTRA_MODES = (
     ("box-pairs@1024", "box-pairs", 200, "ctrl"),
     ("plane-box-cyl-ellipsoid@1024", "plane-shapes", 200, "ctrl"),
     ("box-stack@1024", "box-stack", 200, "ctrl"),
+    ("ball-limit-spring@1024", "ball-limit-spring", 200, "ctrl"),
+    ("ball-free-actuators@1024", "ball-free-actuators", 200, "ctrl"),
+    ("weld-ball@1024", "weld-ball", 200, "ctrl"),
+    ("condim46@1024", "condim46", 200, "ctrl"),
+    ("elliptic-condim4@1024", "elliptic-condim4", 200, "ctrl"),
+    ("elliptic-condim6@1024", "elliptic-condim6", 200, "ctrl"),
     ("cheetah explore", "cheetah/run", 24, "explore"),
     ("cheetah gaussian_reset", "cheetah/run", 24, "gauss"),
 )

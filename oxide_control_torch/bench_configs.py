@@ -2,8 +2,10 @@
 
 The port's copy of the reference bench's synthetic widening configs
 (``bench.py:275-308`` ``_BenchTask``; ``bench.py:311-331`` ``_ARMS_XML``,
-``bench.py:333-367`` ``_MUSCLE_WRAP_XML`` and ``bench.py:369-393``
-``_FOURBAR_XML``, loaded as in ``bench.py:413-425``).  They are not
+``bench.py:333-367`` ``_MUSCLE_WRAP_XML``, ``bench.py:369-393``
+``_FOURBAR_XML`` and ``bench.py:398-410`` ``_CABLE_XML``, loaded as in
+``bench.py:413-425``) and of its cheetah-run-elliptic (the suite's
+cheetah run with elliptic cones, ``bench.py:426-433``).  They are not
 suite tasks (the reference suite has none of them).  Usage::
 
     benv = bench_configs.load_config("arm", "muscle-wrap", 4096)  # on cuda
@@ -11,12 +13,14 @@ suite tasks (the reference suite has none of them).  Usage::
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
 from .api.environment import BatchedEnvironment
 from .mjcf.compile import load_model_from_xml
-from .model import Model
+from .model import ConeType, Model
 from .state import Data
 from .suite.common import uniform
 
@@ -111,10 +115,28 @@ FOURBAR_XML = """
 """
 
 
+# bench.py:398-410: <composite type="cable">, six capsules on six ball
+# joints (nq 24, nv 18), with a motor on the root ball joint
+CABLE_XML = """
+<mujoco>
+  <option solver="Newton" iterations="8" tolerance="0"/>
+  <worldbody>
+    <composite type="cable" count="7" curve="s" size="0.7" offset="0 0 1"
+               initial="ball">
+      <geom type="capsule" size="0.012" density="900"/>
+      <joint kind="main" damping="0.02" stiffness="0.3" armature="0.001"/>
+    </composite>
+  </worldbody>
+  <actuator><motor joint="J_first" gear="0.4 0.2 0"/></actuator>
+</mujoco>
+"""
+
+
 class BenchTask:
     """Minimal kernel-eligible task of the synthetic configs
     (``bench.py:275-308``): observation on raw coordinates, reward
-    clip(qvel[0], 0, 1), uniform reset noise of 0.05 on every qpos."""
+    clip(qvel[0], 0, 1), uniform reset noise of 0.05 on every qpos, the
+    quaternion coordinates of ball and free joints included."""
 
     discount = 1.0
     time_limit = 10.0
@@ -138,23 +160,39 @@ class BenchTask:
         )
 
 
-# the configs' XMLs by (domain, task); every one runs the bench task
+def cheetah_run_elliptic(dtype=np.float32):
+    """(model, task): cheetah run with ``opt.cone = ELLIPTIC``
+    (condim 3, impratio 1), as ``bench.py:426-433`` builds it."""
+    from .suite import cheetah
+
+    model, task = cheetah.run(dtype=dtype)
+    return model.replace(opt=dataclasses.replace(
+        model.opt, cone=ConeType.ELLIPTIC)), task
+
+
+def _bench_task(xml):
+    return lambda dtype: (load_model_from_xml(xml, dtype=dtype), BenchTask())
+
+
+# (model, task) builders by (domain, task); the XML configs run the bench
+# task
 CONFIGS = {
-    ("arm", "muscle-wrap"): MUSCLE_WRAP_XML,
-    ("fourbar", "equality"): FOURBAR_XML,
-    ("arms", "self-collide"): ARMS_XML,
+    ("arm", "muscle-wrap"): _bench_task(MUSCLE_WRAP_XML),
+    ("fourbar", "equality"): _bench_task(FOURBAR_XML),
+    ("arms", "self-collide"): _bench_task(ARMS_XML),
+    ("cable", "swing"): _bench_task(CABLE_XML),
+    ("cheetah", "run-elliptic"): cheetah_run_elliptic,
 }
 
 
 def load_config(domain: str, task: str, batch: int, dtype=np.float32,
                 device=None) -> BatchedEnvironment:
-    """A BatchedEnvironment of one of this module's configs with the bench
-    task, on ``device`` (None: the current CUDA device; raises without
-    one)."""
+    """A BatchedEnvironment of one of this module's configs, on ``device``
+    (None: the current CUDA device; raises without one)."""
     if (domain, task) not in CONFIGS:
         raise ValueError(f"unknown bench config {domain}/{task}; available: "
                          + ", ".join("/".join(k) for k in CONFIGS))
-    model = load_model_from_xml(CONFIGS[domain, task], dtype=dtype)
+    model, task_obj = CONFIGS[domain, task](dtype)
     tdtype = torch.from_numpy(np.zeros(0, dtype=dtype)).dtype
-    return BatchedEnvironment(model, BenchTask(), batch, device=device,
+    return BatchedEnvironment(model, task_obj, batch, device=device,
                               dtype=tdtype)

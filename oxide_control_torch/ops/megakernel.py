@@ -39,7 +39,7 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
-from ..model import JointType, Model
+from ..model import Model
 from . import scalar_graph as sg
 
 # the TPU kernel this replaces: build_rollout's pl.pallas_call
@@ -77,8 +77,9 @@ class EnvHooks:
     ``reset_qpos0[i] + U(-u_i, u_i) + N(0, s_i^2)`` with
     ``u = reset_noise * reset_mask`` and ``s = reset_qpos_sigma``; qvel
     resets to ``N(0, reset_qvel_sigma^2)`` per dof.  Quaternion
-    coordinates must have zero amplitude in both (:func:`env_spec`
-    raises otherwise).
+    coordinates take the noise like any other, without normalization, as
+    the reference's reset does: the step reads a ball or free joint's
+    quaternion through normalizing or scale-free maps.
     """
 
     reward: Callable
@@ -131,27 +132,10 @@ def env_spec(model: Model, hooks: EnvHooks) -> EnvSpec:
     uamp = [float(hooks.reset_noise) * m for m in mask]
     qsig = ([0.0] * nq if hooks.reset_qpos_sigma is None
             else [float(x) for x in hooks.reset_qpos_sigma])
-    for i in _quat_coords(model):
-        if uamp[i] or qsig[i]:
-            raise ValueError(
-                f"qpos[{i}] is a quaternion coordinate: its reset amplitude "
-                f"must be 0 (uniform {uamp[i]}, Gaussian {qsig[i]}), or a "
-                "reset leaves the unit sphere")
     return EnvSpec(nq=nq, nv=model.nv, nu=model.nu, na=model.na,
                    n_obs=hooks.n_obs, h=h, limit_n=limit_n,
                    qpos0=tuple(qpos0), uamp=tuple(uamp), qsig=tuple(qsig),
                    vsig=float(hooks.reset_qvel_sigma), neq=model.neq)
-
-
-def _quat_coords(model: Model) -> list[int]:
-    """qpos indices that hold quaternion components (free joints; ball
-    joints are outside the kernel class)."""
-    out = []
-    for j in range(model.njnt):
-        if model.jnt_type[j] == JointType.FREE:
-            adr = model.jnt_qposadr[j]
-            out += range(adr + 3, adr + 7)
-    return out
 
 
 def bind_hooks(model: Model, hooks: EnvHooks, bk):

@@ -2,11 +2,12 @@
 
 The port of ``oxide_control_tpu/ops/scalar_graph.py`` for the control
 suite's class widened by stateful and muscle actuators, fixed and spatial
-tendons (sphere and cylinder wraps) and friction loss (see
-:func:`supports`).  The whole ``mj_step`` of one env is built as a graph
-of elementwise operations on per-env scalars; the model's structure (tree
-topology, joint axes, geom pairs, constraint rows) is compiled away at
-build time:
+tendons (sphere and cylinder wraps), friction loss, equality constraints,
+every narrowphase pair of the reference, ball joints, and elliptic cones
+and condim 4/6 (see :func:`supports`).  The whole ``mj_step`` of one env
+is built as a graph of elementwise operations on per-env scalars; the
+model's structure (tree topology, joint axes, geom pairs, constraint
+rows) is compiled away at build time:
 
 * every per-env scalar is either a **python float constant** (folded at
   build time in double precision -- structural zeros vanish, so the
@@ -667,16 +668,20 @@ def unsupported_reason(model: Model) -> str | None:
     reference's ``supports``; each reason names the ROADMAP row that
     widens it:
 
-    * joints: hinge and slide (limits included), and free joints alone on
-      their body
+    * joints: hinge and slide (limits included), ball (limits and
+      rotational springs included), and free joints alone on their body;
+      a reset may leave a ball or free joint's quaternion off the unit
+      sphere (the step reads it normalized)
     * integrator: Euler (implicit joint damping included) or RK4
-    * solver: Newton with pyramidal cones at condim 1 or 3
+    * solver: Newton with pyramidal or elliptic cones at condim 1, 3, 4
+      or 6 (torsional and rolling friction)
     * contacts: plane-sphere/capsule/box/ellipsoid/cylinder,
       sphere-sphere, sphere-capsule, sphere-box, capsule-capsule,
       capsule-box and box-box (SAT and face clip)
     * actuators: every dynamics (none, integrator, filter, filterexact,
       muscle), gain and bias (fixed, affine, muscle), with a joint
-      (hinge, slide, free), tendon or site (no refsite) transmission
+      (hinge, slide, ball, free), tendon or site (no refsite)
+      transmission
     * tendons: fixed, and spatial (site paths, pulleys, sphere and
       cylinder wraps with or without a sidesite): springs, dampers,
       limits, friction loss and transmission; dof friction loss
@@ -686,9 +691,6 @@ def unsupported_reason(model: Model) -> str | None:
     """
     for j in range(model.njnt):
         jt = JointType(model.jnt_type[j])
-        if jt == JointType.BALL:
-            return ("BALL joint: ball joints (cable-swing) are ROADMAP "
-                    "Queue A item 10")
         if jt == JointType.FREE and (
                 model.jnt_limited[j]
                 or model.body_jntnum[model.jnt_bodyid[j]] != 1):
@@ -702,17 +704,16 @@ def unsupported_reason(model: Model) -> str | None:
     if model.opt.solver != SolverType.NEWTON:
         return "solver is not Newton: CG/PGS stay on the general path " \
                "(ROADMAP Queue A item 11)"
-    if model.opt.cone != ConeType.PYRAMIDAL:
-        return "elliptic cones are ROADMAP Queue A item 10.4"
     for (t1, t2, _) in model.pair_groups:
         if (GeomType(t1), GeomType(t2)) not in _SUPPORTED_PAIRS:
             return (f"contact pair {GeomType(t1).name}-{GeomType(t2).name}: "
                     "pairs without a closed-form narrowphase stay on the "
                     "general path (ROADMAP Queue A item 11)")
     for c in model.pair_condim:
-        if c not in (1, 3):
-            return (f"condim {c}: condim 4/6 rows are ROADMAP Queue A "
-                    "item 10.4")
+        if c not in (1, 3, 4, 6):
+            return (f"condim {c}: only condim 1, 3, 4 and 6 are in the "
+                    "kernel class; it stays on the general path (ROADMAP "
+                    "Queue A item 11)")
     refid = tuple(model.actuator_refid) or (-1,) * model.nu
     for u in range(model.nu):
         trn = TrnType(model.actuator_trntype[u])
@@ -1148,7 +1149,7 @@ def _spatial_tendon_sg(bk, model, mc, fk, bd_mask, t):
 
 def _transmission(bk, model, mc, u, fk, bd_mask, qpos, ten, need_length):
     """(moment {dof: coef}, length) of actuator ``u`` (mj_transmission):
-    a hinge, slide or free joint, a tendon (``ten`` is the step's
+    a hinge, slide, ball or free joint, a tendon (``ten`` is the step's
     (lengths, moments, velocities)) or a site without refsite, whose gear
     is a 6D wrench in the site frame.  The length is built only when
     ``need_length`` (affine or muscle gain and bias read it)."""
@@ -1159,6 +1160,19 @@ def _transmission(bk, model, mc, u, fk, bd_mask, qpos, ten, need_length):
         if model.jnt_type[j] == JointType.FREE:
             g6 = [float(x) for x in mc.actuator_gear[u]]
             return {vadr + k: g6[k] for k in range(6) if g6[k] != 0.0}, 0.0
+        if model.jnt_type[j] == JointType.BALL:
+            # torque gear[:3] on the 3 dofs; length expmap(q) . gear[:3]
+            g3 = [float(x) for x in mc.actuator_gear[u][:3]]
+            length = 0.0
+            if need_length:
+                qadr = model.jnt_qposadr[j]
+                expmap = quat_sub_scalar(
+                    bk, qnormalize(bk, tuple(qpos[qadr + k]
+                                             for k in range(4))),
+                    (1.0, 0.0, 0.0, 0.0))
+                length = sum_scalars([mul(g3[k], expmap[k])
+                                      for k in range(3)])
+            return {vadr + k: g3[k] for k in range(3) if g3[k] != 0.0}, length
         gear = float(mc.actuator_gear[u][0])
         length = (mul(gear, qpos[model.jnt_qposadr[j]]) if need_length
                   else 0.0)
@@ -1189,7 +1203,7 @@ def _transmission(bk, model, mc, u, fk, bd_mask, qpos, ten, need_length):
 
 
 def _fk_chain(bk, model, mc, sub_mask, qpos, com: bool = True):
-    """FK + com geometry for hinge/slide/free trees: every
+    """FK + com geometry for hinge/slide/ball/free trees: every
     position-dependent quantity the downstream stages and the env hooks
     read (xanchor/xaxis captured during the walk, before each joint's own
     transform, as mj_kinematics does).  ``com=False`` stops after the body
@@ -1225,6 +1239,12 @@ def _fk_chain(bk, model, mc, sub_mask, qpos, com: bool = True):
             if jt == JointType.SLIDE:
                 disp = sub(qpos[qadr], float(mc.qpos0[qadr]))
                 pos = vadd3(pos, vscale3(axis_w, disp))
+            elif jt == JointType.BALL:
+                # the joint's (normalized) quaternion turns the body
+                # about the anchor
+                qloc = qnormalize(bk, tuple(qpos[qadr + i] for i in range(4)))
+                quat = qmul(quat, qloc)
+                pos = vsub3(anchor, qrot(quat, jpos_local))
             else:  # hinge
                 angle = sub(qpos[qadr], float(mc.qpos0[qadr]))
                 qloc = axis_angle_quat(bk, axis_local, angle)
@@ -1274,6 +1294,12 @@ def _fk_chain(bk, model, mc, sub_mask, qpos, com: bool = True):
             for i in range(3):
                 col = mat_col(xmat[b], i)
                 cdof[vadr + 3 + i] = (col, cross3(col, off))
+        elif model.jnt_type[j] == JointType.BALL:
+            # 3 rotations about the body-frame axes, anchored at the joint
+            off = vsub3(com, xanchor[j])
+            for i in range(3):
+                col = mat_col(xmat[b], i)
+                cdof[vadr + i] = (col, cross3(col, off))
         elif model.jnt_type[j] == JointType.SLIDE:
             cdof[vadr] = ((0.0, 0.0, 0.0), xaxis[j])
         else:
@@ -1472,6 +1498,11 @@ def build_step(model: Model, bk):
                         cdof_dot[i] = motion_cross(v, cdof[i])
                     for i in range(adr + 3, adr + 6):
                         v = vel_add(v, i)
+                elif model.jnt_type[j] == JointType.BALL:
+                    for i in range(adr, adr + 3):
+                        cdof_dot[i] = motion_cross(v, cdof[i])
+                    for i in range(adr, adr + 3):
+                        v = vel_add(v, i)
                 else:
                     cdof_dot[adr] = motion_cross(v, cdof[adr])
                     v = vel_add(v, adr)
@@ -1521,16 +1552,26 @@ def build_step(model: Model, bk):
 
         # ----------------- passive + actuation -----------------
         qfrc_passive = []
-        free_springs = {}  # jnt id -> (3,) rotational spring displacement
+        quat_springs = {}  # jnt id -> (3,) rotational spring displacement
         for i in range(nv):
             j = model.dof_jntid[i]
+            jt = model.jnt_type[j]
             qadr = model.jnt_qposadr[j]
             stiff = float(mc.jnt_stiffness[j])
             spring = 0.0
-            if stiff and model.jnt_type[j] != JointType.FREE:
+            if stiff and jt in (JointType.HINGE, JointType.SLIDE):
                 spring = mul(
                     -stiff, sub(qpos[qadr], float(mc.qpos_spring[qadr]))
                 )
+            elif stiff and jt == JointType.BALL:
+                # -stiffness * mju_subQuat(q, qpos_spring) on the 3 dofs
+                if j not in quat_springs:
+                    quat_springs[j] = quat_sub_scalar(
+                        bk, tuple(qpos[qadr + k] for k in range(4)),
+                        tuple(float(mc.qpos_spring[qadr + k])
+                              for k in range(4)))
+                spring = mul(-stiff,
+                             quat_springs[j][i - model.jnt_dofadr[j]])
             elif stiff:
                 # translation dofs: linear spring to qpos_spring[:3];
                 # rotation dofs: quaternion spring (mju_subQuat)
@@ -1541,14 +1582,14 @@ def build_step(model: Model, bk):
                         sub(qpos[qadr + k_], float(mc.qpos_spring[qadr + k_])),
                     )
                 else:
-                    if j not in free_springs:
-                        free_springs[j] = quat_sub_scalar(
+                    if j not in quat_springs:
+                        quat_springs[j] = quat_sub_scalar(
                             bk,
                             tuple(qpos[qadr + 3 + k] for k in range(4)),
                             tuple(float(mc.qpos_spring[qadr + 3 + k])
                                   for k in range(4)),
                         )
-                    spring = mul(-stiff, free_springs[j][k_ - 3])
+                    spring = mul(-stiff, quat_springs[j][k_ - 3])
             damp = mul(-float(mc.dof_damping[i]), qvel[i])
             qfrc_passive.append(add(spring, damp))
 
@@ -1636,20 +1677,25 @@ def build_step(model: Model, bk):
         qacc_smooth = chol_solve(l_m, qfrc_smooth)
 
         # ----------------- collision + efc assembly -----------------
-        rows = _assemble_rows(bk, model, mc, qpos, qvel, xpos, xmat,
-                              subtree_com, cdof, bd_mask, h, ten, eq_act,
-                              fk_d)
+        rows, cones = _assemble_rows(bk, model, mc, qpos, qvel, xpos, xmat,
+                                     subtree_com, cdof, bd_mask, h, ten,
+                                     eq_act, fk_d)
 
         # ----------------- Newton solver -----------------
         qfrc_constraint = [0.0] * nv
-        if rows:
-            qacc, rows = _newton(bk, model, rows, m_mat, chol_factor,
-                                 chol_solve, qacc_smooth, qfrc_smooth,
-                                 warmstart, nv)
+        if rows or cones:
+            qacc = _newton(bk, model, rows, cones, m_mat, chol_factor,
+                           chol_solve, qacc_smooth, qfrc_smooth, warmstart,
+                           nv)
             for r in rows:
                 fr = r["force"]
                 for dof, val in r["J"].items():
                     qfrc_constraint[dof] = fma(qfrc_constraint[dof], val, fr)
+            for c in cones:
+                for Ji, fi in zip(c["J"], c["force"]):
+                    for dof, val in Ji.items():
+                        qfrc_constraint[dof] = fma(qfrc_constraint[dof], val,
+                                                   fi)
         else:
             qacc = qacc_smooth
         return dict(qacc=qacc, qfrc_smooth=qfrc_smooth,
@@ -1666,6 +1712,13 @@ def build_step(model: Model, bk):
             vadr = model.jnt_dofadr[j]
             if model.jnt_type[j] in (JointType.HINGE, JointType.SLIDE):
                 qpos_new[qadr] = add(qpos[qadr], mul(dt, qvel_new[vadr]))
+                continue
+            if model.jnt_type[j] == JointType.BALL:
+                q = quat_integrate_scalar(
+                    bk, tuple(qpos[qadr + i] for i in range(4)),
+                    tuple(qvel_new[vadr + i] for i in range(3)), dt)
+                for i in range(4):
+                    qpos_new[qadr + i] = q[i]
                 continue
             # free: world-frame translation + local angular velocity
             for i in range(3):
@@ -1876,13 +1929,20 @@ def _eq_cw_rows_sg(model, mc, fk, bd_mask, eqs):
 
 def _qpos_tangent_sg(model, qpos, qvel):
     """d(qpos)/dt on the manifold, per coordinate: scalar joints copy
-    qvel, a free joint's quaternion moves as 0.5 q (0, w)."""
+    qvel, a ball or free joint's quaternion moves as 0.5 q (0, w)."""
     out = list(qpos)
     for j in range(model.njnt):
         qadr = model.jnt_qposadr[j]
         vadr = model.jnt_dofadr[j]
         if model.jnt_type[j] in (JointType.HINGE, JointType.SLIDE):
             out[qadr] = qvel[vadr]
+            continue
+        if model.jnt_type[j] == JointType.BALL:
+            q = tuple(qpos[qadr + i] for i in range(4))
+            w = (0.0,) + tuple(qvel[vadr + i] for i in range(3))
+            qd = qmul(q, w)
+            for i in range(4):
+                out[qadr + i] = mul(0.5, qd[i])
             continue
         for i in range(3):
             out[qadr + i] = qvel[vadr + i]
@@ -2042,15 +2102,23 @@ def _assemble_rows(bk, model, mc, qpos, qvel, xpos, xmat, subtree_com, cdof,
                    bd_mask, h, ten, eq_act=None, fk_d=None):
     """Equality, friction-loss, limit and contact rows as dicts with a
     sparse J, in MuJoCo's row order: equality, dof friction, tendon
-    friction, joint limits, tendon limits, contacts.  ``ten`` is the
-    step's tendon (lengths, moments, velocities); ``eq_act`` and ``fk_d``
-    are :func:`_eq_rows`'.  Row kinds:
+    friction, joint limits, ball limits, tendon limits, contacts.  ``ten``
+    is the step's tendon (lengths, moments, velocities); ``eq_act`` and
+    ``fk_d`` are :func:`_eq_rows`'.  Row kinds:
 
     * ``eq`` (equality): f = -D jar where the row exists;
     * ``uni`` (limits, pyramid facets): f = max(-D jar, 0) on existing rows;
     * ``fri`` (friction loss, box-bounded): f = clip(-D jar, -floss, floss).
+
+    Returns ``(rows, cones)``: under elliptic cones each contact at condim
+    > 1 is one cone group instead of pyramid facets (a dict with ``J``, a
+    list of condim sparse rows, per-row ``D`` and ``aref``, ``exists`` and
+    the mu constants), which the Newton solver handles through
+    :func:`_cone_force_sg`, :func:`_cone_cost_sg` and
+    :func:`_cone_hess_sg`.
     """
-    rows = []
+    elliptic = model.opt.cone == ConeType.ELLIPTIC
+    rows, cones = [], []
     if model.neq:
         rows += _eq_rows(bk, model, mc, qpos, qvel, bd_mask, h, ten, eq_act,
                          fk_d)
@@ -2106,6 +2174,37 @@ def _assemble_rows(bk, model, mc, qpos, qvel, xpos, xmat, subtree_com, cdof,
                                         1e-12)
         rows.append(dict(J={vadr: sign}, pos=pos, aref=aref, D=dcoef,
                          exists=exists, kind="uni"))
+
+    # ball joint limits: one row per limited ball joint on the rotation
+    # angle, wrapped to (-pi, pi], against max(range); J = -axis
+    for j in range(model.njnt):
+        if (model.opt.disable_limit or not model.jnt_limited[j]
+                or model.jnt_type[j] != JointType.BALL):
+            continue
+        qadr = model.jnt_qposadr[j]
+        vadr = model.jnt_dofadr[j]
+        q = qnormalize(bk, tuple(qpos[qadr + k] for k in range(4)))
+        sin_half = bk.sqrt(bk.maximum(
+            add(add(mul(q[1], q[1]), mul(q[2], q[2])), mul(q[3], q[3])),
+            0.0))
+        angle = 2.0 * atan2_sg(bk, sin_half, q[0])
+        angle = bk.where(angle > math.pi, angle - 2.0 * math.pi, angle)
+        has_axis = sin_half > 1e-12
+        safe = bk.where(has_axis, sin_half, 1.0)
+        sgn = bk.sign(bk.where(bk.eq(angle, 0.0), 1.0, angle))
+        axis = [bk.where(has_axis, q[1 + k] / safe, 1.0 if k == 2 else 0.0)
+                * sgn for k in range(3)]
+        dist = float(max(mc.jnt_range[j])) - bk.abs(angle)
+        margin = float(mc.jnt_margin[j])
+        exists = dist < margin
+        pos = bk.where(exists, dist - margin, 0.0)
+        k, b, imp = _kbi_const(bk, mc.jnt_solref[j], mc.jnt_solimp[j], pos, h)
+        J = {vadr + kk: neg(axis[kk]) for kk in range(3)}
+        aref = -b * _jdotv(J, qvel) - k * imp * pos
+        dcoef = imp / (1.0 - imp) / max(float(mc.dof_invweight0[vadr]),
+                                        1e-12)
+        rows.append(dict(J=J, pos=pos, aref=aref, D=dcoef, exists=exists,
+                         kind="uni"))
 
     # tendon limits (mjCNSTR_LIMIT_TENDON): joint-limit rows on the tendon
     # length, J = +-moment row
@@ -2175,14 +2274,29 @@ def _assemble_rows(bk, model, mc, qpos, qvel, xpos, xmat, subtree_com, cdof,
                     rows.append(dict(J=jn, pos=posr, aref=aref,
                                      D=dapn / max(iw, 1e-12),
                                      exists=exists, kind="uni"))
+                    lane += 1
+                    continue
+                axes = _friction_axes(model, cdof, bd_mask, b1, b2, jrows,
+                                      (n, t1f, t2f), friction, condim)
+                mu0 = float(friction[0])
+                if elliptic:
+                    # one cone group [normal; axes] with plain (un-mu-scaled)
+                    # Jacobians: D_i = D0 impratio (mu_i/mu0)^2, friction
+                    # aref = -b vel
+                    d0 = dapn / max(iw, 1e-12)
+                    impr = float(model.opt.impratio)
+                    cones.append(dict(
+                        J=[jn] + [jt for (jt, _) in axes],
+                        D=[d0] + [d0 * impr * (mu / mu0) ** 2
+                                  for (_, mu) in axes],
+                        aref=[-b_ * _jdotv(jn, qvel) - k * imp * posr]
+                        + [mul(-b_, _jdotv(jt, qvel)) for (jt, _) in axes],
+                        pos=posr, exists=exists,
+                        mu=tuple(mu for (_, mu) in axes), mu0=mu0,
+                        impratio=impr))
                 else:
-                    # pyramidal facets of the 2 tangent directions; the
-                    # diagApprox of every facet uses friction[0]
-                    jt1 = {dof: dot3(t1f, v) for dof, v in jrows.items()}
-                    jt2 = {dof: dot3(t2f, v) for dof, v in jrows.items()}
-                    axes = [(jt1, float(friction[0])),
-                            (jt2, float(friction[1]))]
-                    mu0 = float(friction[0])
+                    # pyramidal facets, two per axis; the diagApprox of
+                    # every facet uses friction[0]
                     dap = iw * 2.0 * mu0 * mu0 * (1.0 + mu0 * mu0)
                     for (jt, mu) in axes:
                         for sgn in (1.0, -1.0):
@@ -2196,7 +2310,27 @@ def _assemble_rows(bk, model, mc, qpos, qvel, xpos, xmat, subtree_com, cdof,
                                              D=dapn / max(dap, 1e-12),
                                              exists=exists, kind="uni"))
                 lane += 1
-    return rows
+    return rows, cones
+
+
+def _friction_axes(model, cdof, bd_mask, b1, b2, jrows, frame, friction,
+                   condim):
+    """[(J dict, mu)] of one contact's friction axes: the two tangents of
+    ``frame`` = (n, t1, t2) on the point Jacobian ``jrows``, then the
+    torsional spin about n (condim >= 4) and the two rolling axes (condim
+    6) on the relative rotational Jacobian."""
+    n, t1f, t2f = frame
+    axes = [({dof: dot3(t1f, v) for dof, v in jrows.items()},
+             float(friction[0])),
+            ({dof: dot3(t2f, v) for dof, v in jrows.items()},
+             float(friction[1]))]
+    if condim >= 4:
+        jrot = _rot_jac_rel(model, cdof, bd_mask, b1, b2)
+        for (ax, mu) in ((n, friction[2]), (t1f, friction[3]),
+                         (t2f, friction[4]))[:condim - 3]:
+            axes.append(({dof: dot3(ax, av) for dof, av in jrot.items()},
+                         float(mu)))
+    return axes
 
 
 def _np_contacts_sg(bk, model, mc, ta, tb, g1, g2, xpos, xmat):
@@ -2735,6 +2869,24 @@ def _point_jac_rel(model, cdof, subtree_com, bd_mask, point, b1, b2):
     return out
 
 
+def _rot_jac_rel(model, cdof, bd_mask, b1, b2):
+    """Sparse dict dof -> vec3: the rotational Jacobian of b2 relative to
+    b1 (the angular cdof difference), for the torsional and rolling
+    friction axes."""
+    out = {}
+    for body, s in ((b2, 1.0), (b1, -1.0)):
+        for dof in range(model.nv):
+            if not bd_mask[body, dof]:
+                continue
+            ang = cdof[dof][0]
+            contrib = ang if s > 0 else tuple(neg(a) for a in ang)
+            if dof in out:
+                out[dof] = vadd3(out[dof], contrib)
+            else:
+                out[dof] = contrib
+    return out
+
+
 def _jdotv(jrow, qvel):
     s = 0.0
     for dof, val in jrow.items():
@@ -2762,15 +2914,19 @@ def _row_force_act(bk, r, jar_r):
     return bk.where(act, -r["D"] * jar_r, 0.0), act
 
 
-def _dphi_stacked(bk, rows, jar, jp, d0, sg):
+def _dphi_stacked(bk, rows, jar, jp, d0, sg, cones=(), cjar=(), cjp=()):
     """The line search's ``dphi`` on the torch backend, over ``(rows, B)``
     stacks: every element goes through the same ops in the same order as
     the per-row form (the sum over rows stays a sequential loop), so the
-    result is bit-identical, from about a tenth of the torch calls."""
+    result is bit-identical, from about a tenth of the torch calls.  Cone
+    groups stack per shape and mu constants (a division by a Python mu
+    rounds as the per-group form's does) and are summed after the rows in
+    group order."""
     st = lambda xs: torch.stack([bk.full(x) for x in xs])
-    jar_s, jp_s = st(jar), st(jp)
-    neg_d = st([-r["D"] for r in rows])
-    exists = st([r["exists"] for r in rows])
+    if rows:
+        jar_s, jp_s = st(jar), st(jp)
+        neg_d = st([-r["D"] for r in rows])
+        exists = st([r["exists"] for r in rows])
     fri = [r.get("kind") == "fri" for r in rows]
     # an eq row is active wherever it exists
     is_eq = [r.get("kind") == "eq" for r in rows]
@@ -2782,18 +2938,46 @@ def _dphi_stacked(bk, rows, jar, jp, d0, sg):
         is_fri = st(fri)
         fl = st([r["floss"] if f else 0.0 for r, f in zip(rows, fri)])
 
+    # cone groups of one shape and one set of mu constants stack as
+    # (groups, condim, B); ``order`` is each group's (stack, index)
+    stacks, order = {}, []
+    for c, j3, p3 in zip(cones, cjar, cjp):
+        key = (c["mu"], c["mu0"], c["impratio"])
+        grp = stacks.setdefault(key, dict(c=c, members=[]))
+        order.append((key, len(grp["members"])))
+        grp["members"].append((c, j3, p3))
+    for grp in stacks.values():
+        mem = grp.pop("members")
+        grp["jar"] = torch.stack([st(j3) for (_, j3, _) in mem])
+        grp["jp"] = torch.stack([st(p3) for (_, _, p3) in mem])
+        d = torch.stack([st(c["D"]) for (c, _, _) in mem])
+        # the group's cone: D and exists stacked as (groups, B) rows
+        grp["c"] = dict(grp["c"], D=list(d.unbind(1)),
+                        exists=st([c["exists"] for (c, _, _) in mem]))
+
+    def cone_df(grp, alpha):
+        jar_a = grp["jar"] + alpha * grp["jp"]
+        f, _ = _cone_force_sg(bk, grp["c"], list(jar_a.unbind(1)))
+        return torch.stack(f, 1) * grp["jp"]
+
     def dphi(alpha):
         s = d0 + alpha * sg
-        jar_a = jar_s + alpha * jp_s
-        below = jar_a < 0
-        act = exists & (below if is_eq is None else below | is_eq)
-        g = neg_d * jar_a
-        f_a = torch.where(act, g, torch.zeros_like(jar_a))
-        if any(fri):
-            f_a = torch.where(is_fri, torch.clamp(g, -fl, fl), f_a)
-        df = f_a * jp_s
-        for i in range(len(rows)):
-            s = s - df[i]
+        if rows:
+            jar_a = jar_s + alpha * jp_s
+            below = jar_a < 0
+            act = exists & (below if is_eq is None else below | is_eq)
+            g = neg_d * jar_a
+            f_a = torch.where(act, g, torch.zeros_like(jar_a))
+            if any(fri):
+                f_a = torch.where(is_fri, torch.clamp(g, -fl, fl), f_a)
+            df = f_a * jp_s
+            for i in range(len(rows)):
+                s = s - df[i]
+        if cones:
+            dfc = {key: cone_df(grp, alpha) for key, grp in stacks.items()}
+            for key, k in order:
+                for dfi in dfc[key][k]:
+                    s = s - dfi
         return s
 
     return dphi
@@ -2822,17 +3006,107 @@ def _mat_vec_sym(m_mat, v, nv):
     return out
 
 
-def _newton(bk, model, rows, m_mat, chol_factor, chol_solve, qacc_smooth,
-            qfrc_smooth, warmstart, nv):
+def _cone_g(c, jar3):
+    """g = -D jar of one cone group's rows."""
+    return [mul(-1.0, mul(c["D"][i], jar3[i])) for i in range(len(c["J"]))]
+
+
+def _cone_force_sg(bk, c, jar3):
+    """(force list, g list) of one elliptic cone group at residual
+    ``jar3``: g = -D jar projected onto the friction cone in the D^-1
+    metric (the reference's scalar form of the general path's cone
+    force).  The group has condim rows: the normal, then condim - 1
+    friction components (the tangents, then torsional and rolling at
+    condim 4/6)."""
+    m = len(c["J"]) - 1
+    g = _cone_g(c, jar3)
+    ghat = [g[i + 1] / c["mu"][i] for i in range(m)]
+    gT = bk.sqrt(sum_scalars([gh * gh for gh in ghat]))
+    mub2 = c["mu0"] * c["mu0"] / c["impratio"]
+    wa = 1.0 / (1.0 + mub2)
+    wb = mub2 / (1.0 + mub2)
+    t = wa * g[0] + wb * gT
+    bottom = g[0] >= gT
+    zero = t <= 0.0
+    safe = bk.where(gT > 1e-15, gT, 1.0)
+    f = [bk.where(bottom, g[0], bk.where(zero, 0.0, t))] + [
+        bk.where(bottom, g[i + 1],
+                 bk.where(zero, 0.0, c["mu"][i] * t * ghat[i] / safe))
+        for i in range(m)
+    ]
+    return [bk.where(c["exists"], fi, 0.0) for fi in f], g
+
+
+def _cone_cost_sg(bk, c, jar3):
+    """Moreau-envelope cost of one cone group (its gradient is -force)."""
+    f, g = _cone_force_sg(bk, c, jar3)
+    cost = 0.0
+    for i in range(len(c["J"])):
+        dinv = 1.0 / bk.maximum(c["D"][i], 1e-30)
+        d = g[i] - f[i]
+        cost = add(cost, 0.5 * dinv * (g[i] * g[i] - d * d))
+    return bk.where(c["exists"], cost, 0.0)
+
+
+def _cone_hess_sg(bk, c, jar3, g=None):
+    """The (condim, condim) cost Hessian of one cone group with respect
+    to its residuals (the general path's cone Hessian in scalar form);
+    ``g`` is :func:`_cone_force_sg`'s, where the caller has it."""
+    dim = len(c["J"])
+    m = dim - 1
+    if g is None:
+        g = _cone_g(c, jar3)
+    q = [g[i + 1] / c["mu"][i] for i in range(m)]
+    Q = bk.sqrt(sum_scalars([qi * qi for qi in q]))
+    safe_q = bk.where(Q > 1e-15, Q, 1.0)
+    mub2 = c["mu0"] * c["mu0"] / c["impratio"]
+    D0 = c["D"][0]
+    a = 1.0 / bk.maximum(D0, 1e-30)
+    b_ = mub2 / bk.maximum(D0, 1e-30)
+    wa = 1.0 / (1.0 + mub2)
+    wb = mub2 / (1.0 + mub2)
+    t = wa * g[0] + wb * Q
+    hpp = a * a / (a + b_)
+    s0 = mul(-1.0, D0)
+    st = [mul(-1.0, c["D"][i + 1]) / c["mu"][i] for i in range(m)]
+    H = [[None] * dim for _ in range(dim)]
+    H[0][0] = s0 * s0 * hpp
+    for i in range(m):
+        hpq_i = (a * b_ / (a + b_)) * q[i] / safe_q
+        H[0][i + 1] = s0 * st[i] * hpq_i
+        H[i + 1][0] = H[0][i + 1]
+    for i in range(m):
+        for j in range(m):
+            qq = q[i] * q[j] / (safe_q * safe_q)
+            eye = 1.0 if i == j else 0.0
+            hqq = (b_ * b_ / (a + b_)) * qq + (t * b_ / safe_q) * (eye - qq)
+            H[i + 1][j + 1] = st[i] * st[j] * hqq
+    bottom = g[0] >= Q
+    zero = t <= 0.0
+    out = [[None] * dim for _ in range(dim)]
+    for i in range(dim):
+        for j in range(dim):
+            diag = c["D"][i] if i == j else 0.0
+            v = bk.where(bottom, diag, bk.where(zero, 0.0, H[i][j]))
+            out[i][j] = bk.where(c["exists"], v, 0.0)
+    return out
+
+
+def _newton(bk, model, rows, cones, m_mat, chol_factor, chol_solve,
+            qacc_smooth, qfrc_smooth, warmstart, nv):
     """Scalar-graph Newton solver with the sort-free line search; the
     ``model.opt.iterations`` iterations run as one ``bk.fori`` carrying
-    (x, jar)."""
+    (x, jar, the cone groups' residuals).  Sets each row's and cone
+    group's ``force`` and returns qacc."""
     ne = len(rows)
+    dims = [len(c["J"]) for c in cones]
 
     def jar_of(x):
-        return [sub(_jdotv(r["J"], x), r["aref"]) for r in rows]
+        return ([sub(_jdotv(r["J"], x), r["aref"]) for r in rows],
+                [[sub(_jdotv(Ji, x), c["aref"][i])
+                  for i, Ji in enumerate(c["J"])] for c in cones])
 
-    def cost_parts(x, jar):
+    def cost_parts(x, jar, cjar):
         # gauss: 0.5 (x - xs)^T M (x - xs)
         dx = [sub(x[i], qacc_smooth[i]) for i in range(nv)]
         mdx = _mat_vec_sym(m_mat, dx, nv)
@@ -2843,18 +3117,30 @@ def _newton(bk, model, rows, m_mat, chol_factor, chol_solve, qacc_smooth,
         cons = 0.0
         for r, jr in zip(rows, jar):
             cons = add(cons, _row_cost(bk, r, jr))
+        for c, j3 in zip(cones, cjar):
+            cons = add(cons, _cone_cost_sg(bk, c, j3))
         return add(gauss, cons)
 
-    jar_ws = jar_of(warmstart)
-    jar_sm = jar_of(qacc_smooth)
-    c_ws = cost_parts(warmstart, jar_ws)
-    c_sm = cost_parts(qacc_smooth, jar_sm)
+    jar_ws, cjar_ws = jar_of(warmstart)
+    jar_sm, cjar_sm = jar_of(qacc_smooth)
+    c_ws = cost_parts(warmstart, jar_ws, cjar_ws)
+    c_sm = cost_parts(qacc_smooth, jar_sm, cjar_sm)
     use_ws = c_ws < c_sm
     x = [bk.where(use_ws, warmstart[i], qacc_smooth[i]) for i in range(nv)]
     jar = [bk.where(use_ws, a, b) for a, b in zip(jar_ws, jar_sm)]
+    cjar = [bk.where(use_ws, a, b)
+            for ca, cb in zip(cjar_ws, cjar_sm) for a, b in zip(ca, cb)]
+
+    def unflat(flat):
+        out, k = [], 0
+        for d in dims:
+            out.append(flat[k:k + d])
+            k += d
+        return out
 
     def iteration(carry):
-        x, jar = carry[:nv], carry[nv:]
+        x, jar = carry[:nv], carry[nv:nv + ne]
+        cjar = unflat(carry[nv + ne:])
         fa = [_row_force_act(bk, r, jr) for r, jr in zip(rows, jar)]
         f = [x_[0] for x_ in fa]
         act = [x_[1] for x_ in fa]
@@ -2863,7 +3149,14 @@ def _newton(bk, model, rows, m_mat, chol_factor, chol_solve, qacc_smooth,
         for r, fr in zip(rows, f):
             for dof, val in r["J"].items():
                 grad[dof] = sub(grad[dof], mul(val, fr))
-        # hessian = M + sum_act D J J^T
+        cg = []
+        for c, j3 in zip(cones, cjar):
+            fc, g = _cone_force_sg(bk, c, j3)
+            cg.append(g)
+            for Ji, fi in zip(c["J"], fc):
+                for dof, val in Ji.items():
+                    grad[dof] = sub(grad[dof], mul(val, fi))
+        # hessian = M + sum_act D J J^T + sum_cones J_c^T H_c J_c
         hess = dict(m_mat)
         for r, a in zip(rows, act):
             w = bk.where(a, r["D"], 0.0)
@@ -2873,44 +3166,75 @@ def _newton(bk, model, rows, m_mat, chol_factor, chol_solve, qacc_smooth,
                 for (d2, v2) in items[: ii + 1]:
                     key = (max(d1, d2), min(d1, d2))
                     hess[key] = add(hess.get(key, 0.0), mul(wv1, v2))
+        for c, j3, g in zip(cones, cjar, cg):
+            H = _cone_hess_sg(bk, c, j3, g)
+            dofs = sorted({d for Ji in c["J"] for d in Ji})
+            for pi, dp in enumerate(dofs):
+                for dq in dofs[: pi + 1]:
+                    v = 0.0
+                    for Ji, Hi in zip(c["J"], H):
+                        jip = Ji.get(dp)
+                        if jip is None:
+                            continue
+                        for Jj, hij in zip(c["J"], Hi):
+                            jjq = Jj.get(dq)
+                            if jjq is None:
+                                continue
+                            v = add(v, mul(mul(jip, hij), jjq))
+                    key = (max(dp, dq), min(dp, dq))
+                    hess[key] = add(hess.get(key, 0.0), v)
         l_h = chol_factor(hess)
         p = chol_solve(l_h, [neg(g) for g in grad])
         jp = [_jdotv(r["J"], p) for r in rows]
+        cjp = [[_jdotv(Ji, p) for Ji in c["J"]] for c in cones]
         mp = _mat_vec_sym(m_mat, p, nv)
         d0 = 0.0
         sg = 0.0
         for i in range(nv):
             d0 = fma(d0, p[i], sub(mx[i], qfrc_smooth[i]))
             sg = fma(sg, p[i], mp[i])
-        alpha = _linesearch_scalar(bk, rows, jar, jp, d0, sg)
+        alpha = _linesearch_scalar(bk, rows, jar, jp, d0, sg, cones, cjar,
+                                   cjp)
         x = [fma(x[i], alpha, p[i]) for i in range(nv)]
         jar = [fma(jr, alpha, jpr) for jr, jpr in zip(jar, jp)]
-        return x + jar
+        cjar = [fma(jr, alpha, jpr) for ca, cpa in zip(cjar, cjp)
+                for jr, jpr in zip(ca, cpa)]
+        return x + jar + cjar
 
-    carry = bk.fori(model.opt.iterations, x + jar, iteration)
+    carry = bk.fori(model.opt.iterations, x + jar + cjar, iteration)
     x, jar = carry[:nv], carry[nv:nv + ne]
 
     # final forces
     for r, jr in zip(rows, jar):
         r["force"], _ = _row_force_act(bk, r, jr)
-    return x, rows
+    for c, j3 in zip(cones, unflat(carry[nv + ne:])):
+        c["force"], _ = _cone_force_sg(bk, c, j3)
+    return x
 
 
-def _linesearch_scalar(bk, rows, jar, jp, d0, sg, n_grow=12, n_bisect=26):
-    """Monotone piecewise-linear derivative root find: doubling bracket then
-    bisection (sort-free), both as ``bk.fori`` loops."""
+def _linesearch_scalar(bk, rows, jar, jp, d0, sg, cones=(), cjar=(), cjp=(),
+                       n_grow=12, n_bisect=26):
+    """Monotone derivative root find: doubling bracket then bisection
+    (sort-free), both as ``bk.fori`` loops.  dphi is piecewise linear in
+    alpha for the row kinds and curved in the cone groups' zones, which
+    the bracket handles alike."""
 
     def dphi(alpha):
-        # dcost/dalpha per row = -f(jar_a) * jp (piecewise linear in alpha)
+        # dcost/dalpha per row = -f(jar_a) * jp
         s = d0 + alpha * sg
         for r, jr, jpr in zip(rows, jar, jp):
             jar_a = jr + alpha * jpr
             f_a, _ = _row_force_act(bk, r, jar_a)
             s = s - f_a * jpr
+        for c, j3, p3 in zip(cones, cjar, cjp):
+            f_a, _ = _cone_force_sg(
+                bk, c, [jr + alpha * jpr for jr, jpr in zip(j3, p3)])
+            for fi, pi in zip(f_a, p3):
+                s = s - fi * pi
         return s
 
-    if isinstance(bk, TorchBackend) and rows:
-        dphi = _dphi_stacked(bk, rows, jar, jp, d0, sg)
+    if isinstance(bk, TorchBackend) and (rows or cones):
+        dphi = _dphi_stacked(bk, rows, jar, jp, d0, sg, cones, cjar, cjp)
 
     def grow(c):
         hi = c[0]

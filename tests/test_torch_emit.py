@@ -4,8 +4,11 @@ The emitted model header -- the same source the card compiles -- is built
 here by g++ in double and held against the torch backend (the plain
 version): the Euler step (hopper, cheetah), the RK4 step (cartpole), the
 free joint (the sphere), the muscle on a wrapped spatial tendon (the arm),
-fixed tendons with friction loss and limits, stateful actuators, and
-walker's reward, which reads the FK.  Its float form is checked for stray
+fixed tendons with friction loss and limits, stateful actuators,
+equality rows and the narrowphase pairs, ball joints (the cable),
+elliptic cones, and walker's reward, which reads the FK.  Every kernel
+source the smoke built before ball joints and cones were ported stays
+byte-identical.  Its float form is checked for stray
 double literals and for the Newton/line-search and wrap-search loops that
 keep it small.
 """
@@ -282,3 +285,84 @@ extern "C" void step_batch(const double* q, const double* v, const double* a,
         np.testing.assert_allclose(cq, _stack(q), rtol=0, atol=1e-9)
         np.testing.assert_allclose(cv, _stack(v), rtol=0, atol=1e-9)
         np.testing.assert_allclose(cw, _stack(w), rtol=0, atol=1e-9)
+
+
+@pytest.mark.parametrize("name", ["cable", "cheetah_elliptic", "elliptic6"])
+def test_emitted_ball_and_cone_bodies_match_torch_backend(name, tmp_path):
+    """Ball joints (the bench's cable, from quaternions off the unit
+    sphere) and elliptic cones (cheetah at condim 3, the reference's
+    condim 6 model) through g++ in double, within 1e-9 of the torch
+    backend over 3 steps."""
+    import chip_smoke
+    from test_torch_ball import _state
+
+    from oxide_control_torch import bench_configs
+
+    if name == "cheetah_elliptic":
+        m = bench_configs.cheetah_run_elliptic(np.float64)[0]
+        qpos, qvel, ws, ctrl = _inputs(m, seed=1)
+    else:
+        m = load_model_from_xml(dict(
+            cable=bench_configs.CABLE_XML,
+            elliptic6=chip_smoke.ELLIPTIC6_XML)[name])
+        qpos, qvel, ctrl = _state(m, 2)
+        ws = np.zeros((B, m.nv))
+    lib, _ = _gxx_step(m, tmp_path)
+    act = np.zeros((B, m.na))
+    step = sg.build_step(m, sg.TorchBackend(B, torch.float64, "cpu"))
+    q, v, a, w, c = (_cols(x) for x in (qpos, qvel, act, ws, ctrl))
+    cq, cv, ca, cw, cc = (np.ascontiguousarray(x)
+                          for x in (qpos, qvel, act, ws, ctrl))
+    ptr = lambda x: x.ctypes.data_as(ctypes.c_void_p)
+    for _ in range(3):
+        q, v, a, w = step(q, v, a, w, c)
+        qo, vo, ao, wo = (np.zeros_like(x) for x in (cq, cv, ca, cw))
+        lib.step_batch(ptr(cq), ptr(cv), ptr(ca), ptr(cw), ptr(cc), ptr(qo),
+                       ptr(vo), ptr(ao), ptr(wo), ctypes.c_int(B))
+        cq, cv, ca, cw = qo, vo, ao, wo
+        np.testing.assert_allclose(cq, _stack(q), rtol=0, atol=1e-9)
+        np.testing.assert_allclose(cv, _stack(v), rtol=0, atol=1e-9)
+        np.testing.assert_allclose(cw, _stack(w), rtol=0, atol=1e-9)
+
+
+# sha256 (first 16 hex digits) of the float kernel source of each distinct
+# (model, hooks) pair the smoke built before ball joints and cones were
+# ported (ENVS keys of chip_smoke.py, and cheetah with Gaussian reset
+# noise): porting them changed no earlier model's kernel
+EARLIER_SOURCES = {
+    "cheetah/run": "e40d1e0a0c579f25", "walker/walk": "9efbfd70f1491e7b",
+    "cartpole/swingup": "be1ba6dc20524d50",
+    "pendulum/swingup": "d7f0fe6c0460f134",
+    "humanoid/run": "9a408c8f154d8947", "arm/muscle-wrap": "8540a01de71941f5",
+    "fourbar/equality": "c65fd1d9f7076353",
+    "arms/self-collide": "bc88896155c2c64f",
+    "walker/walk-tendon": "39d1c5edd09aa213",
+    "stateful/actuators": "4b55a35a9d39913f", "weld": "c377d519be9dea83",
+    "tendon-equality": "4102536f9dd836dc", "box-pairs": "190fd0cf46bb480b",
+    "plane-shapes": "7bcfdd70bdf37488", "box-stack": "acee84fa680f70ea",
+    "cheetah gauss": "a6038eb82f93e532",
+}
+
+
+@pytest.mark.parametrize("key", list(EARLIER_SOURCES))
+def test_earlier_kernel_sources_are_byte_identical(key, monkeypatch):
+    import dataclasses
+    import hashlib
+
+    import chip_smoke
+
+    import oxide_control_torch.api.environment as environment
+
+    # the smoke's environments, built on the CPU
+    monkeypatch.setattr(environment, "default_device",
+                        lambda device=None: torch.device("cpu"))
+    benv = chip_smoke.ENVS["cheetah/run" if key == "cheetah gauss"
+                           else key]()
+    hooks = benv.task.kernel_hooks(benv.model)
+    if key == "cheetah gauss":
+        hooks = dataclasses.replace(
+            hooks, reset_qpos_sigma=[0.0] * 3 + [0.05] * 6,
+            reset_qvel_sigma=0.1)
+    text = mk.kernel_source(benv.model, hooks, "float").text
+    assert hashlib.sha256(text.encode()).hexdigest()[:16] == \
+        EARLIER_SOURCES[key]

@@ -11,6 +11,7 @@ result by at most ~1e-11 in the warmstart.  The forward-mode tangent
 within 1e-12.
 """
 
+import dataclasses
 import inspect
 import re
 
@@ -186,5 +187,16 @@ def test_fastrollout_eq_active_on_the_cpu():
 
 
 def test_bench_configs_copy_the_reference_bench():
+    """The XMLs, and cheetah-run-elliptic built as bench.py:426-433 builds
+    it: the suite's cheetah with elliptic cones, every field equal."""
+    from oxide_control_tpu.model import ConeType as RefConeType
+    from oxide_control_tpu.suite import cheetah as ref_cheetah
+    from test_torch_model import _assert_models_equal
+
     assert bench_configs.FOURBAR_XML == bench._FOURBAR_XML
     assert bench_configs.ARMS_XML == bench._ARMS_XML
+    assert bench_configs.CABLE_XML == bench._CABLE_XML
+    ref, _ = ref_cheetah.run(dtype=np.float32)
+    ref = ref.replace(opt=dataclasses.replace(ref.opt,
+                                              cone=RefConeType.ELLIPTIC))
+    _assert_models_equal(bench_configs.cheetah_run_elliptic()[0], ref)

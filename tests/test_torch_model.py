@@ -98,16 +98,6 @@ def test_default_device_raises_without_cuda(monkeypatch):
     assert oxide_control_torch.default_device("cpu") == torch.device("cpu")
 
 
-_BALL = """
-<mujoco>
-  <worldbody>
-    <body name="link" pos="0 0 1">
-      <joint type="ball"/>
-      <geom type="capsule" size="0.05" fromto="0 0 0 0 0 -0.5"/>
-    </body>
-  </worldbody>
-</mujoco>
-"""
 _TWO_LINKS = """
 <mujoco>
   <option {opt}/>
@@ -134,10 +124,15 @@ def _two_links(opt="", mocap="", geom="sphere", extra=""):
 
 
 _REFUSED = dict(
-    ball=_BALL,
-    condim4=_two_links().replace('<geom type="capsule"',
-                                 '<geom type="capsule" condim="4"'),
-    elliptic=_two_links(opt='cone="elliptic"'),
+    # ball joints, elliptic cones and condim 4/6 are admitted since they
+    # were ported; these cases are still refused
+    wind=_two_links(opt='wind="0.5 0 0"'),
+    mocap_ball=_two_links().replace(
+        '<joint name="h2" type="hinge" axis="0 1 0"/>',
+        '<joint name="h2" type="ball"/>').replace(
+        "</worldbody>", '<body name="m" mocap="true"><geom type="sphere" '
+        'size="0.05" contype="0" conaffinity="0"/></body></worldbody>'),
+    implicitfast=_two_links(opt='integrator="implicitfast"'),
     cylinder_pair=_two_links().replace(
         "</worldbody>", '<body pos="1 0 1"><joint type="hinge"/><geom '
         'type="cylinder" size="0.1 0.1"/></body></worldbody>'),
@@ -154,8 +149,8 @@ _IMPLICIT = HOPPER_XML.replace('<option timestep="0.01"',
 
 
 @pytest.mark.parametrize("name,row", [
-    ("ball", "Queue A item 10"), ("condim4", "Queue A item 10.4"),
-    ("implicit", "Queue A item 11"), ("elliptic", "Queue A item 10.4"),
+    ("wind", "Queue A item 10.6"), ("mocap_ball", "Queue A item 10.8"),
+    ("implicit", "Queue A item 11"), ("implicitfast", "Queue A item 11"),
     ("cylinder_pair", "Queue A item 11"), ("fluid", "Queue A item 10.6"),
     ("mocap", "Queue A item 10.8"), ("refsite", "Queue A item 11"),
 ])
@@ -169,6 +164,25 @@ def test_supported_models():
     for name in ("cheetah", "walker", "humanoid", "cartpole", "pendulum"):
         assert sg.supports(load_model(ref_asset_path(name))), name
     assert sg.supports(load_model_from_xml(HOPPER_XML))
+
+
+def test_ball_and_cone_models_are_supported():
+    """The models this class admits for ball joints, condim 4/6 and
+    elliptic cones: the two bench rows, the smoke's six parity models and
+    the wrist under RK4."""
+    import chip_smoke
+    from oxide_control_torch import bench_configs
+
+    xmls = [bench_configs.CABLE_XML, chip_smoke.BALL_LIMIT_XML,
+            chip_smoke.BALL_LIMIT_XML.replace(
+                '<option solver="Newton"',
+                '<option integrator="RK4" solver="Newton"'),
+            chip_smoke.BALL_FREE_XML, chip_smoke.WELD_BALL_XML,
+            chip_smoke.CONDIM46_XML, chip_smoke.ELLIPTIC4_XML,
+            chip_smoke.ELLIPTIC6_XML]
+    for xml in xmls:
+        assert sg.unsupported_reason(load_model_from_xml(xml)) is None
+    assert sg.supports(bench_configs.cheetah_run_elliptic()[0])
 
 
 def test_unported_tasks_raise():

@@ -142,19 +142,26 @@ def test_reset_spec_matches_reference(domain, task):
 
 def test_quaternion_reset_amplitude_raises():
     """A reset amplitude on the humanoid's root quaternion (qpos[3:7]),
-    uniform or Gaussian, is refused: a reset would leave the unit
-    sphere."""
+    uniform or Gaussian, no longer raises: the reference's reset adds it
+    to the quaternion coordinates like any other and the step reads the
+    quaternion normalized, so env_spec keeps it and the reset values are
+    qpos0 + amplitude x noise, unnormalized."""
     m, t = suite.humanoid.run(dtype=np.float64)
     hooks = t.kernel_hooks(m)
     mk.env_spec(m, hooks)
     gauss = np.full(m.nq, 0.01)
-    with pytest.raises(ValueError, match="qpos\\[3\\] is a quaternion"):
-        mk.env_spec(m, dataclasses.replace(hooks, reset_qpos_sigma=gauss))
+    spec = mk.env_spec(m, dataclasses.replace(hooks, reset_qpos_sigma=gauss))
+    assert spec.qsig[3:7] == (0.01,) * 4
     mask = np.zeros(m.nq)
     mask[5] = 1.0
-    with pytest.raises(ValueError, match="qpos\\[5\\] is a quaternion"):
-        mk.env_spec(m, dataclasses.replace(hooks, reset_noise=0.1,
-                                           reset_mask=mask))
+    spec = mk.env_spec(m, dataclasses.replace(hooks, reset_noise=0.1,
+                                              reset_mask=mask))
+    assert spec.uamp[5] == 0.1 and spec.uamp[3] == 0.0
+    uni = torch.linspace(-1.0, 1.0, m.nq, dtype=torch.float64)
+    z = torch.ones(m.nq + m.nv, dtype=torch.float64)
+    q, _ = mk.reset_values(spec, uni, z)
+    assert float(q[5]) == spec.qpos0[5] + 0.1 * float(uni[5])
+    assert q[3] == spec.qpos0[3]
 
 
 def test_observe_kwargs_invariant():
