@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: ``python3 chip_smoke.py``.
 
 Drives the port's main path -- ``FastRollout`` through the hand-written
-CUDA rollout kernel on eleven rows of the reference bench: cheetah-run@4096
+CUDA rollout kernel on twelve rows of the reference bench: cheetah-run@4096
 and walker-walk@4096 (K = 200), cartpole-swingup@1024 (K = 200, RK4),
 arm-muscle-wrap@4096, fourbar-equality@4096 (connect and joint
 equalities, eq_active lanes), arms-self-collide@4096 (capsule and sphere
@@ -10,9 +10,11 @@ quaternion coordinate), all K = 200 from
 ``oxide_control_torch.bench_configs``, cheetah-run-elliptic@4096 (K = 50,
 elliptic cones), humanoid-run@8192 (K = 100, free root joint) with
 uniform ctrl, and the in-kernel (64, 64) policy collecting trajectories
-on cheetah (K = 200) and humanoid (K = 100) -- after building every kernel
-from the sources in this checkout and holding each against its plain
-PyTorch version.
+on cheetah (K = 200), humanoid (K = 100) and walker-walk-tendon-sensors@4096
+(K = 50: the policy reads gyro, accelerometer, velocimeter and framepos
+rows computed in the kernel, the accelerometer from the carried stage-1
+qacc) -- after building every kernel from the sources in this checkout
+and holding each against its plain PyTorch version.
 Phases, each fatal on failure:
 
 1. device: the card's name and power limit;
@@ -40,8 +42,10 @@ eq_active), weld@1024, tendon-equality@1024, box-pairs@1024,
 plane-box-cyl-ellipsoid@1024, box-stack@1024 (box-box SAT),
 ball-limit-spring@1024, ball-free-actuators@1024, weld-ball@1024,
 condim46@1024 (pyramidal torsional and rolling friction),
-elliptic-condim4@1024 and elliptic-condim6@1024; and the two options off
-the main path (exploration noise, Gaussian reset noise) at K = 24.
+elliptic-condim4@1024 and elliptic-condim6@1024, and sensors-all@1024
+(a ball joint, every sensor type of the kernel family, observed and
+collected); and the two options off the main path (exploration noise,
+Gaussian reset noise) at K = 24.
 
 Needs one CUDA card; exits non-zero without one.
 """
@@ -65,7 +69,7 @@ from oxide_control_torch.ops import megakernel as mk
 from oxide_control_torch.parallel.rollout import FastRollout
 from oxide_control_torch.policy import MLPPolicy
 from oxide_control_torch.suite import walker
-from oxide_control_torch.suite.common import asset_path
+from oxide_control_torch.suite.common import SensorObsWrapper, asset_path
 
 # two parity models without a bench row.  Filter, filterexact
 # (act-limited) and integrator actuators on a two-link arm over a floor
@@ -318,6 +322,85 @@ ELLIPTIC_XML = """
 ELLIPTIC4_XML = ELLIPTIC_XML.format(condim=4, fric="1 0.01 0.0001")
 ELLIPTIC6_XML = ELLIPTIC_XML.format(condim=6, fric="1 0.008 0.002")
 
+# the sensor parity model: every sensor type of the kernel family (frame
+# sensors on sites, bodies, xbodies and geoms, with and without a
+# reference frame; ball quaternion and angular velocity; tendon and
+# actuator position and velocity, one actuator on the tendon; cutoffs on
+# the gyro and the accelerometer) on a slide-hinge torso with a ball-
+# jointed arm and a hinged hand, the torso's sphere on a floor; Euler
+# (tests/test_torch_sensors.py steps it under RK4 too)
+SENSORS_ALL_XML = """
+<mujoco>
+  <option timestep="0.005" solver="Newton" iterations="4" tolerance="0"/>
+  <worldbody>
+    <geom name="floor" type="plane" size="5 5 .1"/>
+    <body name="torso" pos="0 0 0.6">
+      <joint name="z" type="slide" axis="0 0 1" damping="0.1"/>
+      <joint name="tilt" type="hinge" axis="0 1 0" range="-1 1"
+             limited="true" damping="0.05"/>
+      <geom name="core" type="sphere" size="0.12" mass="1"/>
+      <site name="imu" pos="0.05 0 0.08" euler="0 20 10"/>
+      <body name="arm" pos="0.15 0 0" euler="0 0 30">
+        <joint name="shoulder" type="ball" damping="0.05" stiffness="0.5"/>
+        <geom name="limb" type="capsule" fromto="0 0 0 0.25 0 0" size="0.04"
+              mass="0.4" contype="0" conaffinity="0"/>
+        <site name="tip" pos="0.25 0 0" euler="15 0 0"/>
+        <body name="hand" pos="0.25 0 0">
+          <joint name="wrist" type="hinge" axis="0 0 1" damping="0.02"/>
+          <geom name="fist" type="box" size="0.05 0.03 0.02" pos="0.05 0 0"
+                euler="10 20 30" mass="0.1" contype="0" conaffinity="0"/>
+        </body>
+      </body>
+    </body>
+  </worldbody>
+  <tendon>
+    <fixed name="coupler">
+      <joint joint="tilt" coef="0.7"/>
+      <joint joint="wrist" coef="-0.3"/>
+    </fixed>
+  </tendon>
+  <actuator>
+    <motor name="lift" joint="z" gear="10"/>
+    <motor name="twist" joint="shoulder" gear="0.3 1 0.2"/>
+    <motor name="pull" tendon="coupler" gear="2"/>
+  </actuator>
+  <sensor>
+    <jointpos joint="tilt"/>
+    <jointvel joint="wrist"/>
+    <tendonpos tendon="coupler"/>
+    <tendonvel tendon="coupler"/>
+    <actuatorpos actuator="twist"/>
+    <actuatorvel actuator="lift"/>
+    <actuatorpos actuator="pull"/>
+    <actuatorvel actuator="pull"/>
+    <ballquat joint="shoulder"/>
+    <ballangvel joint="shoulder"/>
+    <framepos objtype="site" objname="tip"/>
+    <framepos objtype="geom" objname="fist" reftype="body" refname="arm"/>
+    <framequat objtype="body" objname="hand"/>
+    <framequat objtype="geom" objname="fist" reftype="site" refname="imu"/>
+    <framexaxis objtype="xbody" objname="arm"/>
+    <frameyaxis objtype="site" objname="tip" reftype="xbody"
+                refname="torso"/>
+    <framezaxis objtype="geom" objname="limb"/>
+    <framelinvel objtype="site" objname="tip"/>
+    <framelinvel objtype="body" objname="hand" reftype="geom"
+                 refname="core"/>
+    <frameangvel objtype="geom" objname="fist"/>
+    <frameangvel objtype="xbody" objname="hand" reftype="site"
+                 refname="imu"/>
+    <framelinacc objtype="site" objname="tip"/>
+    <frameangacc objtype="body" objname="hand"/>
+    <gyro site="imu" cutoff="1"/>
+    <velocimeter site="tip"/>
+    <accelerometer site="imu" cutoff="30"/>
+    <magnetometer site="imu"/>
+    <subtreecom body="arm"/>
+    <clock/>
+  </sensor>
+</mujoco>
+"""
+
 
 class QuatSafeBenchTask(bench_configs.BenchTask):
     """The bench task without reset noise on quaternion coordinates (a
@@ -352,6 +435,14 @@ def ball_env(xml, batch, device=None):
     return BatchedEnvironment(load_model_from_xml(xml, np.float32),
                               bench_configs.BenchTask(), batch,
                               device=device)
+
+
+def sensors_env(xml, batch, device=None):
+    """The bench task observing the model's sensors as well, reset noise
+    on quaternions included."""
+    return BatchedEnvironment(load_model_from_xml(xml, np.float32),
+                              SensorObsWrapper(bench_configs.BenchTask()),
+                              batch, device=device)
 
 
 def walker_tendon_env(batch, device=None):
@@ -396,6 +487,9 @@ ENVS = {
     "condim46": lambda: ball_env(CONDIM46_XML, 1024),
     "elliptic-condim4": lambda: ball_env(ELLIPTIC4_XML, 1024),
     "elliptic-condim6": lambda: ball_env(ELLIPTIC6_XML, 1024),
+    "walker/walk-tendon-sensors": lambda: bench_configs.load_config(
+        "walker", "walk-tendon-sensors", 4096),
+    "sensors-all": lambda: sensors_env(SENSORS_ALL_XML, 1024),
 }
 # the main path's rows: (name, task, K, in-kernel policy + collection)
 ROWS = (
@@ -408,6 +502,8 @@ ROWS = (
     ("arms-self-collide@4096", "arms/self-collide", 200, False),
     ("cable-swing@4096", "cable/swing", 200, False),
     ("cheetah-run-elliptic@4096", "cheetah/run-elliptic", 50, False),
+    ("walker-walk-tendon-sensors@4096", "walker/walk-tendon-sensors", 50,
+     True),
     ("humanoid-run@8192", "humanoid/run", 100, False),
     ("humanoid-run-policy-obs@8192", "humanoid/run", 100, True),
 )
@@ -430,6 +526,8 @@ EXTRA_MODES = (
     ("condim46@1024", "condim46", 200, "ctrl"),
     ("elliptic-condim4@1024", "elliptic-condim4", 200, "ctrl"),
     ("elliptic-condim6@1024", "elliptic-condim6", 200, "ctrl"),
+    # ctrl input, the observation (the sensor rows) collected
+    ("sensors-all@1024", "sensors-all", 200, "collect"),
     ("cheetah explore", "cheetah/run", 24, "explore"),
     ("cheetah gaussian_reset", "cheetah/run", 24, "gauss"),
 )
@@ -440,8 +538,8 @@ N_TIMED = 10
 LANE_OPS_PER_S = 33.5e12
 SFU_OPS_PER_S = 132 * 16 * 1.98e9
 BYTES_PER_S = 3.35e12
-BARS = dict(qpos=1e-4, qvel=1e-3, act=1e-4, reward_sum=1e-4, obs=1e-4,
-            ctrls=1e-5)
+BARS = dict(qpos=1e-4, qvel=1e-3, act=1e-4, qacc=1e-3, reward_sum=1e-4,
+            obs=1e-4, ctrls=1e-5)
 T0 = time.perf_counter()
 
 
@@ -515,7 +613,8 @@ def parity_inputs(benv, fn, seed=7, toggle=False):
     that some envs cross the time limit inside the window, with the
     call's ctrl or policy weights and, for a model with equality
     constraints, its eq_active rows (eq_active0; with ``toggle`` the
-    first equality off on every other env)."""
+    first equality off on every other env).  A carried qacc starts
+    uniform in [-1, 1), so the first step's accelerometer reads it."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     b = fn.batch
     data = benv.reset(gen)
@@ -528,6 +627,9 @@ def parity_inputs(benv, fn, seed=7, toggle=False):
     state = (data.qpos.T.contiguous(), data.qvel.T.contiguous(), act,
              data.qacc_warmstart.T.contiguous(),
              (n0.to(torch.float32) * fn.spec.h)[None].contiguous())
+    if fn.spec.carry_qacc:
+        qacc = torch.empty((fn.spec.nv, b), device="cuda")
+        state += (qacc.uniform_(-1.0, 1.0, generator=gen),)
     ctrl = params = None
     if fn.policy is None:
         ctrl = torch.empty((fn.steps, fn.spec.nu, b), device="cuda")
@@ -548,7 +650,8 @@ def parity_inputs(benv, fn, seed=7, toggle=False):
 def resets_of(fn, args, out):
     """Time-limit crossings of the call plus divergence resets."""
     n_in = torch.round(args[4][0] / fn.spec.h)
-    return int(((n_in + fn.steps) // fn.spec.limit_n).sum() + out[6].sum())
+    return int(((n_in + fn.steps) // fn.spec.limit_n).sum()
+               + out[fn.n_state + 1].sum())
 
 
 def time_kernel(fn, args):
@@ -566,13 +669,16 @@ def time_kernel(fn, args):
     return start.elapsed_time(end) / N_TIMED, out
 
 
-def max_errors(ko, po, collect):
+def max_errors(fn, ko, po):
+    ns = fn.n_state
     e = dict(qpos=ko[0] - po[0], qvel=ko[1] - po[1], act=ko[2] - po[2],
-             reward_sum=ko[5] - po[5])
-    if collect:
-        e["obs"] = ko[7] - po[7]
-        if len(ko) > 10:
-            e["ctrls"] = ko[10] - po[10]
+             reward_sum=ko[ns] - po[ns])
+    if fn.spec.carry_qacc:
+        e["qacc"] = ko[5] - po[5]
+    if fn.emit_obs:
+        e["obs"] = ko[ns + 2] - po[ns + 2]
+        if fn.policy is not None:
+            e["ctrls"] = ko[ns + 5] - po[ns + 5]
     return {k: float(x.abs().max()) for k, x in e.items()}
 
 
@@ -601,8 +707,9 @@ def parity_phase(modes, plain):
         args, po = plain[label]["args"], plain[label]["out"]
         ko = fn(*args)
         torch.cuda.synchronize()
-        me = max_errors(ko, po, fn.emit_obs)
-        if fn.emit_obs and not torch.equal(ko[9], po[9]):
+        me = max_errors(fn, ko, po)
+        dones = fn.n_state + 4
+        if fn.emit_obs and not torch.equal(ko[dones], po[dones]):
             raise AssertionError(f"{label}: dones differ")
         resets = resets_of(fn, args, ko)
         same = all(torch.equal(a, b) for a, b in zip(ko, po))
@@ -649,7 +756,7 @@ def timing_phase(rolls, plain, fma):
             log(f"  FMA-contracted build (not on the path): {fma_ms:.4f} ms "
                 f"per call against {ms:.4f}; drift from the plain version: "
                 + ", ".join(f"{k} {v:.3e}" for k, v in max_errors(
-                    fo, plain[row]["out"], False).items()))
+                    fma, fo, plain[row]["out"]).items()))
     return res
 
 
@@ -721,7 +828,8 @@ def bound(fn, built, resets):
     # nq + nv Box-Muller normals
     ops += resets * (built.reset_ops + 25 * s.n_draws + 8 * (s.nq + s.nv))
     sfu += resets * 3 * (s.nq + s.nv)
-    nbytes = 4 * b * (2 * (s.nq + 2 * s.nv + fn.na_rows + 1) + 2 + s.neq)
+    nbytes = 4 * b * (2 * (s.nq + 2 * s.nv + fn.na_rows + 1) + 2 + s.neq
+                      + (2 * s.nv if s.carry_qacc else 0))
     if fn.policy is None:
         nbytes += 4 * k * s.nu * b
     else:
@@ -740,7 +848,7 @@ def main():
     gen = torch.Generator(device="cuda").manual_seed(0)
     benvs = {key: make() for key, make in ENVS.items()}
     policies = {}
-    for key in ("cheetah/run", "humanoid/run"):
+    for key in ("cheetah/run", "humanoid/run", "walker/walk-tendon-sensors"):
         model = benvs[key].model
         policies[key] = MLPPolicy(
             benvs[key].task.kernel_hooks(model).n_obs, model.nu,
@@ -762,7 +870,7 @@ def main():
             benv.model, benv.num_envs, k,
             gauss if variant == "gauss"
             else benv.task.kernel_hooks(benv.model),
-            emit_obs=variant in ("explore", "gauss"),
+            emit_obs=variant in ("explore", "gauss", "collect"),
             policy=explorer if variant == "explore" else None))
     fma = mk.build_rollout(cheetah.model, 4096, 200, hooks, fmad=True)
 

@@ -4,9 +4,12 @@ The port's copy of the reference bench's synthetic widening configs
 (``bench.py:275-308`` ``_BenchTask``; ``bench.py:311-331`` ``_ARMS_XML``,
 ``bench.py:333-367`` ``_MUSCLE_WRAP_XML``, ``bench.py:369-393``
 ``_FOURBAR_XML`` and ``bench.py:398-410`` ``_CABLE_XML``, loaded as in
-``bench.py:413-425``) and of its cheetah-run-elliptic (the suite's
-cheetah run with elliptic cones, ``bench.py:426-433``).  They are not
-suite tasks (the reference suite has none of them).  Usage::
+``bench.py:413-425``), of its cheetah-run-elliptic (the suite's
+cheetah run with elliptic cones, ``bench.py:426-433``) and of its
+walker-walk-tendon-sensors (walker walk with a knee-coupler tendon and an
+IMU on the torso, observed through ``SensorObsWrapper``,
+``bench.py:435-468``).  They are not suite tasks (the reference suite
+has none of them).  Usage::
 
     benv = bench_configs.load_config("arm", "muscle-wrap", 4096)  # on cuda
 """
@@ -22,7 +25,7 @@ from .api.environment import BatchedEnvironment
 from .mjcf.compile import load_model_from_xml
 from .model import ConeType, Model
 from .state import Data
-from .suite.common import uniform
+from .suite.common import SensorObsWrapper, asset_path, uniform
 
 # bench.py:311-331: two arms on hinges, children of the world, whose
 # capsules and tip spheres collide with each other and the floor
@@ -170,6 +173,37 @@ def cheetah_run_elliptic(dtype=np.float32):
         model.opt, cone=ConeType.ELLIPTIC)), task
 
 
+# bench.py:440-453: the knee coupler (a fixed tendon with friction loss)
+# and gyro, accelerometer, velocimeter and framepos on the torso site
+WALKER_TENDON_SENSORS = """
+  <tendon>
+    <fixed name="knee_coupler" frictionloss="0.05">
+      <joint joint="left_knee" coef="0.5"/>
+      <joint joint="right_knee" coef="-0.5"/>
+    </fixed>
+  </tendon>
+  <sensor>
+    <gyro site="torso_site"/>
+    <accelerometer site="torso_site"/>
+    <velocimeter site="torso_site"/>
+    <framepos objtype="site" objname="torso_site"/>
+  </sensor>
+</mujoco>"""
+
+
+def walker_walk_tendon_sensors(dtype=np.float32):
+    """(model, task): walker walk with ``WALKER_TENDON_SENSORS``, the
+    task observing the sensors through ``SensorObsWrapper``
+    (``bench.py:435-468``)."""
+    from .suite import walker
+
+    with open(asset_path("walker")) as f:
+        xml = f.read().replace("</mujoco>", WALKER_TENDON_SENSORS)
+    model = load_model_from_xml(xml, dtype=dtype)
+    _, task = walker.walk(model=model)
+    return model, SensorObsWrapper(task)
+
+
 def _bench_task(xml):
     return lambda dtype: (load_model_from_xml(xml, dtype=dtype), BenchTask())
 
@@ -182,6 +216,7 @@ CONFIGS = {
     ("arms", "self-collide"): _bench_task(ARMS_XML),
     ("cable", "swing"): _bench_task(CABLE_XML),
     ("cheetah", "run-elliptic"): cheetah_run_elliptic,
+    ("walker", "walk-tendon-sensors"): walker_walk_tendon_sensors,
 }
 
 

@@ -5,7 +5,8 @@
   ``MLPPolicy`` with those weights.
 * ``state_from_numpy`` / ``state_to_numpy``: the coordinate-major kernel
   state in ``FastRollout.pack`` order, ``(qpos (nq,B), qvel (nv,B),
-  act (max(na,1),B), warmstart (nv,B), time (1,B))``, both ways.
+  act (max(na,1),B), warmstart (nv,B), time (1,B)[, qacc (nv,B)])``, both
+  ways (qacc for a task that observes an accelerometer-family sensor).
 * ``eq_active_to_kernel`` / ``eq_active_from_kernel``: ``Data.eq_active``
   rows ``(B, neq)`` <-> the kernel's coordinate-major ``(neq, B)``.
 """

@@ -186,6 +186,11 @@ def _mat_to_quat(m):
     return q / np.linalg.norm(q)
 
 
+# the frame (pos3, quat4) an outer <replicate> copy gives a nested
+# meta-element; applied to that element's expansion
+_FRAME_ATTR = "_oxc_frame"
+
+
 def _quat_to_mat(q):
     w, x, y, z = q
     return np.array(
@@ -340,12 +345,46 @@ class _Compiler:
                     new = self._expand_replicate(child)
                 else:
                     new = self._expand_composite(child)
+                if _FRAME_ATTR in child.attrib:
+                    # a meta-element copied by an outer <replicate>: its
+                    # expansion lies in that copy's frame (MuJoCo 3.10)
+                    f = [float(x) for x in child.attrib[_FRAME_ATTR].split()]
+                    for n in new:
+                        self._apply_frame(n, np.array(f[:3]),
+                                          np.array(f[3:]))
                 elem.remove(child)
                 for k, n in enumerate(new):
                     elem.insert(i + k, n)
                 continue  # re-examine the inserted elements (nesting)
             self._expand_meta(child)
             i += 1
+
+    def _apply_frame(self, c: ET.Element, P, Q):
+        """Move element ``c`` into the frame (P, Q): a ``fromto`` or its
+        pos/orientation; a nested meta-element keeps the frame in
+        ``_FRAME_ATTR`` (composed with one it already has) and applies it
+        to its expansion."""
+        if c.tag in ("replicate", "composite"):
+            if _FRAME_ATTR in c.attrib:
+                f = [float(x) for x in c.attrib[_FRAME_ATTR].split()]
+                P, Q = (P + _quat_to_mat(Q) @ np.array(f[:3]),
+                        _quat_mul(Q, np.array(f[3:])))
+            c.attrib[_FRAME_ATTR] = " ".join(
+                f"{v:.17g}" for v in np.concatenate([P, Q]))
+            return
+        cattrs = dict(c.attrib)
+        if "fromto" in cattrs:
+            ft = _attr_floats(cattrs, "fromto", None, 6)
+            R = _quat_to_mat(Q)
+            ft = np.concatenate([P + R @ ft[:3], P + R @ ft[3:]])
+            c.attrib["fromto"] = " ".join(f"{v:.17g}" for v in ft)
+            return
+        pos = P + _quat_to_mat(Q) @ _attr_floats(cattrs, "pos", [0, 0, 0], 3)
+        quat = _quat_mul(Q, self._orientation(cattrs))
+        for k in ("euler", "axisangle", "xyaxes", "zaxis"):
+            c.attrib.pop(k, None)
+        c.attrib["pos"] = " ".join(f"{v:.17g}" for v in pos)
+        c.attrib["quat"] = " ".join(f"{v:.17g}" for v in quat)
 
     def _expand_replicate(self, el: ET.Element) -> list[ET.Element]:
         """<replicate count offset euler sep>: N copies of the enclosed
@@ -354,11 +393,15 @@ class _Compiler:
         every name gets a zero-padded index suffix (sep-separated).
         Verified vs MuJoCo 3.10: copy i has pos P_i + Q_i p, quat Q_i q
         with P_0 = 0, Q_0 = I, P_{i+1} = P_i + Q_i offset,
-        Q_{i+1} = Q_i q_euler."""
+        Q_{i+1} = Q_i q_euler.  A nested meta-element is expanded in its
+        copy's frame, and ``count`` is required, as in MuJoCo."""
         import copy as _copy
 
         attrs = dict(el.attrib)
-        count = int(attrs.get("count", "2").split()[0])
+        if "count" not in attrs:
+            raise ModelError("XML Error: required attribute missing: 'count' "
+                             "(element 'replicate')")
+        count = int(attrs["count"].split()[0])
         offset = _attr_floats(attrs, "offset", [0, 0, 0], 3)
         sep = attrs.get("sep", "")
         q_step = self._orientation(attrs) if any(
@@ -383,21 +426,7 @@ class _Compiler:
             for child in el:
                 c = _copy.deepcopy(child)
                 suffix_names(c, suf)
-                cattrs = dict(c.attrib)
-                if "fromto" in cattrs:
-                    ft = _attr_floats(cattrs, "fromto", None, 6)
-                    R = _quat_to_mat(Q)
-                    ft = np.concatenate([P + R @ ft[:3], P + R @ ft[3:]])
-                    c.attrib["fromto"] = " ".join(f"{v:.17g}" for v in ft)
-                else:
-                    pos = _attr_floats(cattrs, "pos", [0, 0, 0], 3)
-                    quat = self._orientation(cattrs)
-                    pos = P + _quat_to_mat(Q) @ pos
-                    quat = _quat_mul(Q, quat)
-                    for k in ("euler", "axisangle", "xyaxes", "zaxis"):
-                        c.attrib.pop(k, None)
-                    c.attrib["pos"] = " ".join(f"{v:.17g}" for v in pos)
-                    c.attrib["quat"] = " ".join(f"{v:.17g}" for v in quat)
+                self._apply_frame(c, P, Q)
                 out.append(c)
             P = P + _quat_to_mat(Q) @ offset
             Q = _quat_mul(Q, q_step)

@@ -13,7 +13,11 @@
 // auto-reset with Philox noise, and the trajectory rows stored to global
 // memory.  Every per-env array is sized by the OXC_* macros of the model's
 // emitted header (oxc_model.h), so one shell serves every model of the
-// class.
+// class.  A task that observes sensors (OXC_NSENSORDATA) has them computed
+// inside oxc_observe at the pre-step state; the clock reads n * h, and the
+// accelerometer family (OXC_CARRY_QACC) reads the previous step's stage-1
+// qacc, which the thread carries in registers beside q and v, zeroes on
+// reset and stores at the end.
 //
 // What bounds it: compute.  One env-step is ~1e4 (cartpole, four RK4
 // passes) to ~4e5 (humanoid) scalar f32 lane-ops (the emitter counts them
@@ -44,6 +48,24 @@
 #ifndef OXC_NEQ
 #define OXC_NEQ 0
 #endif
+#if OXC_NEQ > 0
+#define OXC_EQ_ARG eqa,
+#else
+#define OXC_EQ_ARG
+#endif
+// sensors the observation reads, and whether one of them reads qacc (the
+// header defines these only for a task that observes sensors)
+#ifndef OXC_NSENSORDATA
+#define OXC_NSENSORDATA 0
+#endif
+#ifndef OXC_CARRY_QACC
+#define OXC_CARRY_QACC 0
+#endif
+#if OXC_CARRY_QACC
+#define OXC_QA_OUT , qan
+#else
+#define OXC_QA_OUT
+#endif
 
 struct OxcMlp {
   int n_layers;
@@ -56,6 +78,7 @@ oxc_rollout_kernel(const float* __restrict__ qpos,
                    const float* __restrict__ act,
                    const float* __restrict__ ws,
                    const float* __restrict__ time_in,
+                   const float* __restrict__ qacc_in,
                    const float* __restrict__ ctrl,
                    const int* __restrict__ seed_ptr,
                    const float* __restrict__ params, int n_params,
@@ -64,6 +87,7 @@ oxc_rollout_kernel(const float* __restrict__ qpos,
                    float* __restrict__ qpos_o, float* __restrict__ qvel_o,
                    float* __restrict__ act_o, float* __restrict__ ws_o,
                    float* __restrict__ time_o,
+                   float* __restrict__ qacc_o,
                    float* __restrict__ reward_sum,
                    float* __restrict__ diverged,
                    float* __restrict__ obs_o, float* __restrict__ rewards_o,
@@ -86,6 +110,10 @@ oxc_rollout_kernel(const float* __restrict__ qpos,
   for (int i = 0; i < OXC_NV; ++i) v[i] = qvel[i * B + env];
   for (int i = 0; i < OXC_NA_ROWS; ++i) a[i] = act[i * B + env];
   for (int i = 0; i < OXC_NV; ++i) w[i] = ws[i * B + env];
+#if OXC_CARRY_QACC
+  float qa[OXC_NV];
+  for (int i = 0; i < OXC_NV; ++i) qa[i] = qacc_in[i * B + env];
+#endif
 #if OXC_NEQ > 0
   // the env's eq_active lanes (0/1 per equality), constant over the call
   bool eqa[OXC_NEQ];
@@ -100,7 +128,16 @@ oxc_rollout_kernel(const float* __restrict__ qpos,
     float c[OXC_NU_ROWS];
     if (policy || collect) {
       float obs[OXC_NOBS];
+#if OXC_NSENSORDATA > 0
+      const float clk = (float)n * OXC_H;
+#if OXC_CARRY_QACC
+      oxc_observe(q, v, qa, &clk, obs);
+#else
+      oxc_observe(q, v, nullptr, &clk, obs);
+#endif
+#else
       oxc_observe(q, v, obs);
+#endif
       if (collect)
         for (int i = 0; i < OXC_NOBS; ++i)
           obs_o[((size_t)k * OXC_NOBS + i) * B + env] = obs[i];
@@ -123,11 +160,10 @@ oxc_rollout_kernel(const float* __restrict__ qpos,
         c[u] = ctrl[((size_t)k * OXC_NU + u) * B + env];
 
     float qn[OXC_NQ], vn[OXC_NV], wn[OXC_NV], an[OXC_NA_ROWS];
-#if OXC_NEQ > 0
-    oxc_step(q, v, a, w, c, eqa, qn, vn, an, wn);
-#else
-    oxc_step(q, v, a, w, c, qn, vn, an, wn);
+#if OXC_CARRY_QACC
+    float qan[OXC_NV];
 #endif
+    oxc_step(q, v, a, w, c, OXC_EQ_ARG qn, vn, an, wn OXC_QA_OUT);
     n += 1;
 
     // divergence (non-finite or |x| > 1e10, on q and v only) + time
@@ -151,6 +187,9 @@ oxc_rollout_kernel(const float* __restrict__ qpos,
     for (int i = 0; i < OXC_NV; ++i) v[i] = vn[i];
     for (int i = 0; i < OXC_NV; ++i) w[i] = wn[i];
     for (int i = 0; i < OXC_NA; ++i) a[i] = an[i];
+#if OXC_CARRY_QACC
+    for (int i = 0; i < OXC_NV; ++i) qa[i] = qan[i];
+#endif
     if (done) {
       // masked auto-reset: nq uniforms + (nq + nv) Box-Muller normals
       float s[OXC_NDRAW], z[OXC_NQ + OXC_NV];
@@ -161,6 +200,9 @@ oxc_rollout_kernel(const float* __restrict__ qpos,
       oxc_reset(s, z, q, v);
       for (int i = 0; i < OXC_NV; ++i) w[i] = 0.0f;
       for (int i = 0; i < OXC_NA; ++i) a[i] = 0.0f;
+#if OXC_CARRY_QACC
+      for (int i = 0; i < OXC_NV; ++i) qa[i] = 0.0f;
+#endif
       n = 0;
     }
   }
@@ -170,17 +212,22 @@ oxc_rollout_kernel(const float* __restrict__ qpos,
   for (int i = 0; i < OXC_NV; ++i) ws_o[i * B + env] = w[i];
   for (int i = 0; i < OXC_NA_ROWS; ++i) act_o[i * B + env] = a[i];
   time_o[env] = (float)n * OXC_H;
+#if OXC_CARRY_QACC
+  for (int i = 0; i < OXC_NV; ++i) qacc_o[i * B + env] = qa[i];
+#endif
   reward_sum[env] = rew;
   diverged[env] = ndiv;
 }
 
 extern "C" int oxc_rollout_launch(
     const float* qpos, const float* qvel, const float* act, const float* ws,
-    const float* time_in, const float* ctrl, const int* seed,
+    const float* time_in, const float* qacc_in, const float* ctrl,
+    const int* seed,
     const float* params, int n_params, const float* eq_active, int n_layers,
     const int* dims,
     float explore_sigma, float* qpos_o, float* qvel_o, float* act_o,
-    float* ws_o, float* time_o, float* reward_sum, float* diverged,
+    float* ws_o, float* time_o, float* qacc_o, float* reward_sum,
+    float* diverged,
     float* obs_o, float* rewards_o, float* dones_o, float* ctrls_o, int B,
     int K, void* stream) {
   OxcMlp mlp;
@@ -192,6 +239,8 @@ extern "C" int oxc_rollout_launch(
   if (params && (dims[0] != OXC_NOBS || dims[n_layers] != OXC_NU))
     return (int)cudaErrorInvalidValue;
   if (OXC_NEQ > 0 && eq_active == nullptr) return (int)cudaErrorInvalidValue;
+  if (OXC_CARRY_QACC && (qacc_in == nullptr || qacc_o == nullptr))
+    return (int)cudaErrorInvalidValue;
   const int threads = OXC_BLOCK;
   const int blocks = (B + threads - 1) / threads;
   const size_t shmem = params ? (size_t)n_params * sizeof(float) : 0;
@@ -202,9 +251,9 @@ extern "C" int oxc_rollout_launch(
     if (e != cudaSuccess) return (int)e;
   }
   oxc_rollout_kernel<<<blocks, threads, shmem, (cudaStream_t)stream>>>(
-      qpos, qvel, act, ws, time_in, ctrl, seed, params, n_params, eq_active,
-      mlp, explore_sigma, qpos_o, qvel_o, act_o, ws_o, time_o, reward_sum,
-      diverged, obs_o, rewards_o, dones_o, ctrls_o, B, K);
+      qpos, qvel, act, ws, time_in, qacc_in, ctrl, seed, params, n_params,
+      eq_active, mlp, explore_sigma, qpos_o, qvel_o, act_o, ws_o, time_o,
+      qacc_o, reward_sum, diverged, obs_o, rewards_o, dones_o, ctrls_o, B, K);
   return (int)cudaGetLastError();
 }
 

@@ -73,6 +73,14 @@ class EnvHooks:
     receives ``fk`` of the pre-step q only if its signature takes it, so
     a task may read frames in its reward while observing raw coordinates.
 
+    With ``needs_sensors`` ``observe`` also receives ``sensordata``: the
+    model's ``nsensordata`` rows from ``scalar_graph.build_sensors`` at the
+    pre-step state, computed in the kernel (every sensor must be in the
+    kernel family, ``scalar_graph.sensors_supported``).  The clock reads
+    the step counter times h; the accelerometer family reads the previous
+    step's stage-1 qacc, which the kernel then carries as state (zero at
+    a reset, as after the general path's reset).
+
     Reset distribution: qpos[i] resets to
     ``reset_qpos0[i] + U(-u_i, u_i) + N(0, s_i^2)`` with
     ``u = reset_noise * reset_mask`` and ``s = reset_qpos_sigma``; qvel
@@ -92,6 +100,7 @@ class EnvHooks:
     observe: Callable | None = None
     n_obs: int = 0
     needs_fk: bool = False
+    needs_sensors: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,6 +119,8 @@ class EnvSpec:
     qsig: tuple
     vsig: float
     neq: int = 0
+    nsensordata: int = 0   # sensor rows observe reads (0: no sensors)
+    carry_qacc: bool = False  # an accelerometer-family sensor reads qacc
 
     @property
     def n_draws(self) -> int:
@@ -132,27 +143,41 @@ def env_spec(model: Model, hooks: EnvHooks) -> EnvSpec:
     uamp = [float(hooks.reset_noise) * m for m in mask]
     qsig = ([0.0] * nq if hooks.reset_qpos_sigma is None
             else [float(x) for x in hooks.reset_qpos_sigma])
+    nsens, carry_qacc = 0, False
+    if hooks.needs_sensors:
+        reason = sg.unsupported_sensor_reason(model)
+        if reason is not None:
+            raise ValueError(f"the task observes sensors: {reason}")
+        nsens = model.nsensordata
+        carry_qacc = any(sg.SensorType(t) in sg._ACC_SENSORS
+                         for t in model.sensor_type)
     return EnvSpec(nq=nq, nv=model.nv, nu=model.nu, na=model.na,
                    n_obs=hooks.n_obs, h=h, limit_n=limit_n,
                    qpos0=tuple(qpos0), uamp=tuple(uamp), qsig=tuple(qsig),
-                   vsig=float(hooks.reset_qvel_sigma), neq=model.neq)
+                   vsig=float(hooks.reset_qvel_sigma), neq=model.neq,
+                   nsensordata=nsens, carry_qacc=carry_qacc)
 
 
 def bind_hooks(model: Model, hooks: EnvHooks, bk):
-    """``(observe(q, v), reward(q, v, c))``: the task's hooks on backend
-    ``bk``, with ``fk`` passed as :class:`EnvHooks` says (the reference's
-    rule, ``oxide_control_tpu/ops/megakernel.py:160-177``).  The plain
-    version and the emitted kernel both call the hooks through this, so
-    they evaluate the same expressions in the same order."""
+    """``(observe(q, v, qacc=None, time=None), reward(q, v, c))``: the
+    task's hooks on backend ``bk``, with ``fk`` and ``sensordata`` passed
+    as :class:`EnvHooks` says (the reference's rule,
+    ``oxide_control_tpu/ops/megakernel.py:160-177`` and ``:442-452``;
+    ``qacc`` and ``time`` feed the sensors).  The plain version and the
+    emitted kernel both call the hooks through this, so they evaluate the
+    same expressions in the same order."""
     fk = sg.build_fk(model, bk) if hooks.needs_fk else None
+    sens = sg.build_sensors(model, bk) if hooks.needs_sensors else None
     obs_fk = False
     if fk is not None and hooks.observe is not None:
         params = inspect.signature(hooks.observe).parameters.values()
         obs_fk = any(p.kind == p.VAR_KEYWORD or p.name == "fk"
                      for p in params)
 
-    def observe(q, v):
+    def observe(q, v, qacc=None, time=None):
         kw = {"fk": fk(q)} if obs_fk else {}
+        if sens is not None:
+            kw["sensordata"] = sens(q, v, qacc=qacc, time=time)
         return list(hooks.observe(bk, q, v, **kw))
 
     def reward(q, v, c):
@@ -278,31 +303,41 @@ def kernel_source(model: Model, hooks: EnvHooks,
     parts = []
 
     em = Emitter(ctype)
-    step = sg.build_step(model, em)
+    step = sg.build_step(model, em, want_qacc=spec.carry_qacc)
     q, v, a = em.load("q", nq), em.load("v", nv), em.load("a", na)
     w, c = em.load("w", nv), em.load("c", nu)
     # a model with equality constraints takes one bool lane per equality
     eq = em.load("eq", spec.neq, "b") if spec.neq else None
-    qn, vn, an, wn = step(q, v, a, w, c, eq)
-    em.store("q_out", qn)
-    em.store("v_out", vn)
-    em.store("a_out", an)
-    em.store("w_out", wn)
+    outs = step(q, v, a, w, c, eq)
+    for name, xs in zip(("q_out", "v_out", "a_out", "w_out", "qa_out"),
+                        outs):
+        em.store(name, xs)
     eq_arg = "const bool* eq, " if spec.neq else ""
+    # the stage-1 qacc the accelerometer family reads at the next step
+    qa_arg = f", {T}* qa_out" if spec.carry_qacc else ""
     parts.append(em.function(
         f"void oxc_step(const {T}* q, const {T}* v, const {T}* a, "
         f"const {T}* w, const {T}* c, {eq_arg}{T}* q_out, {T}* v_out, "
-        f"{T}* a_out, {T}* w_out)"))
+        f"{T}* a_out, {T}* w_out{qa_arg})"))
     step_ops, step_sfu = em.ops, em.sfu_ops
 
     eo = Emitter(ctype)
     q, v = eo.load("q", nq), eo.load("v", nv)
-    rows = bind_hooks(model, hooks, eo)[0](q, v)
+    if spec.nsensordata:
+        # the sensors read the carried qacc (when an acceleration sensor
+        # is present) and the clock n * h
+        qa = eo.load("qa", nv) if spec.carry_qacc else None
+        rows = bind_hooks(model, hooks, eo)[0](q, v, qa, eo.load("clk", 1)[0])
+        sens_args = f"const {T}* qa, const {T}* clk, "
+    else:
+        rows = bind_hooks(model, hooks, eo)[0](q, v)
+        sens_args = ""
     if len(rows) != n_obs:
         raise ValueError(f"observe gave {len(rows)} rows, n_obs={n_obs}")
     eo.store("obs", rows)
     parts.append(eo.function(
-        f"void oxc_observe(const {T}* q, const {T}* v, {T}* obs)"))
+        f"void oxc_observe(const {T}* q, const {T}* v, {sens_args}"
+        f"{T}* obs)"))
 
     er = Emitter(ctype)
     q, v, c = er.load("q", nq), er.load("v", nv), er.load("c", nu)
@@ -330,7 +365,10 @@ def kernel_source(model: Model, hooks: EnvHooks,
         f"#define OXC_LIMIT_N {spec.limit_n}",
         f"#define OXC_H {lit(spec.h)}",
         f"#define OXC_INV_H {lit(1.0 / spec.h)}",
-    ] + ([f"#define OXC_NEQ {spec.neq}"] if spec.neq else []))
+    ] + ([f"#define OXC_NEQ {spec.neq}"] if spec.neq else [])
+      + ([f"#define OXC_NSENSORDATA {spec.nsensordata}"]
+         if spec.nsensordata else [])
+      + (["#define OXC_CARRY_QACC 1"] if spec.carry_qacc else []))
     text = (f"/* emitted by oxide_control_torch.ops.megakernel.kernel_source"
             f" ({ctype}): do not edit */\n#pragma once\n" + PRELUDE + "\n"
             + defines + "\n\n" + "\n".join(parts))
@@ -411,15 +449,18 @@ class _GraphedStep:
 
 class RolloutFn:
     """``fn(qpos (nq,B), qvel (nv,B), act (max(na,1),B), ws (nv,B),
-    time (1,B), ctrl (K,nu,B) | None, seed (1,) int32, params=None,
-    eq_active=None)``.
+    time (1,B)[, qacc (nv,B)], ctrl (K,nu,B) | None, seed (1,) int32,
+    params=None, eq_active=None)``.
 
     Without a policy ``ctrl`` is required; with one, ``params`` is the
     list (W_1, b_1, ..., W_L, b_L) with W (out, in) and b (out, 1) and
     ``ctrl`` is None.  A model with equality constraints takes
     ``eq_active (neq,B)`` in the state's dtype, 0/1 per env and equality
     (Data.eq_active, constant over the call); a model without takes none.
-    Returns ``(qpos', qvel', act', ws', time',
+    A task that observes an accelerometer-family sensor carries the
+    stage-1 ``qacc`` as a sixth state element, after time (``n_state``
+    is 6, as in the reference).
+    Returns ``(qpos', qvel', act', ws', time'[, qacc'],
     reward_sum (1,B), diverged (1,B))`` plus, with ``emit_obs``,
     ``obs (K,n_obs,B), rewards (K,B), dones (K,B)`` and, with a policy,
     ``ctrls (K,nu,B)``.
@@ -440,6 +481,7 @@ class RolloutFn:
         self.model = model
         self.hooks = hooks
         self.spec = env_spec(model, hooks)
+        self.n_state = 6 if self.spec.carry_qacc else 5
         self.batch = batch
         self.steps = steps_per_call
         self.emit_obs = emit_obs
@@ -461,13 +503,30 @@ class RolloutFn:
         self._plain_steps = {}
 
     # ----- shared checks -----
-    def _check(self, qpos, qvel, act, ws, time, ctrl, seed, params,
-               eq_active):
+    def _bind(self, args, kw):
+        """``(state, ctrl, seed, params, eq_active)`` of a call: the
+        first ``n_state`` arguments are the state, the rest as named."""
+        n = self.n_state
+        if len(args) < n:
+            raise ValueError(f"the rollout takes {n} state tensors, got "
+                             f"{len(args)}")
+        names = ("ctrl", "seed", "params", "eq_active")
+        if len(args) > n + len(names) or set(kw) - set(names):
+            raise TypeError("arguments after the state: ctrl, seed, "
+                            "params, eq_active")
+        rest = dict(zip(names, args[n:]))
+        for k, x in kw.items():
+            if k in rest:
+                raise TypeError(f"{k} given twice")
+            rest[k] = x
+        return (tuple(args[:n]),) + tuple(rest.get(k) for k in names)
+
+    def _check(self, state, ctrl, seed, params, eq_active):
         s, B, K = self.spec, self.batch, self.steps
         want = dict(qpos=(s.nq, B), qvel=(s.nv, B), act=(self.na_rows, B),
-                    ws=(s.nv, B), time=(1, B))
-        dev, dtype = qpos.device, qpos.dtype
-        for name, t in zip(want, (qpos, qvel, act, ws, time)):
+                    ws=(s.nv, B), time=(1, B), qacc=(s.nv, B))
+        dev, dtype = state[0].device, state[0].dtype
+        for name, t in zip(want, state):
             if tuple(t.shape) != want[name]:
                 raise ValueError(f"{name} shape {tuple(t.shape)}, want "
                                  f"{want[name]}")
@@ -499,22 +558,24 @@ class RolloutFn:
         dev, dtype = like.device, like.dtype
         e = lambda *shape: torch.empty(shape, device=dev, dtype=dtype)
         out = [e(s.nq, B), e(s.nv, B), e(self.na_rows, B), e(s.nv, B),
-               e(1, B), e(1, B), e(1, B)]
+               e(1, B)]
+        if s.carry_qacc:
+            out.append(e(s.nv, B))
+        out += [e(1, B), e(1, B)]
         if self.emit_obs:
             out += [e(K, s.n_obs, B), e(K, B), e(K, B)]
             if self.policy is not None:
                 out.append(e(K, s.nu, B))
         return out
 
-    def __call__(self, qpos, qvel, act, ws, time, ctrl=None, seed=None,
-                 params=None, eq_active=None):
+    def __call__(self, *args, **kw):
+        call = self._bind(args, kw)
+        qpos = call[0][0]
         if qpos.is_cuda:
-            return self._launch(qpos, qvel, act, ws, time, ctrl, seed,
-                                params, eq_active)
+            return self._launch(*call)
         if qpos.device.type != "cpu":
             raise ValueError(f"no rollout for device {qpos.device}")
-        return self.plain(qpos, qvel, act, ws, time, ctrl, seed, params,
-                          eq_active)
+        return self._plain(*call)
 
     # ----- the kernel -----
     def build(self):
@@ -526,26 +587,21 @@ class RolloutFn:
             self._lib = build.build_rollout_library(src, fmad=self.fmad)
         return self._lib
 
-    def _launch(self, qpos, qvel, act, ws, time, ctrl, seed, params,
-                eq_active):
-        self._check(qpos, qvel, act, ws, time, ctrl, seed, params,
-                    eq_active)
-        if qpos.dtype != torch.float32:
+    def _launch(self, state, ctrl, seed, params, eq_active):
+        self._check(state, ctrl, seed, params, eq_active)
+        if state[0].dtype != torch.float32:
             raise ValueError("the rollout kernel takes float32 state")
-        ins = [qpos, qvel, act, ws, time]
-        for t in (ctrl, eq_active):
-            if t is not None:
-                ins.append(t)
-        for t in ins:
+        for t in state + tuple(t for t in (ctrl, eq_active)
+                               if t is not None):
             if not t.is_contiguous():
                 raise ValueError("the rollout kernel takes contiguous "
                                  "tensors")
         if seed.dtype != torch.int32:
             raise ValueError("seed must be int32")
         built = self.build()
-        out = self._alloc(qpos)
+        out = self._alloc(state[0])
         if self.policy is not None:
-            packed = _pack_params(params, self.dims, qpos.device,
+            packed = _pack_params(params, self.dims, state[0].device,
                                   torch.float32)
             n_params = packed.numel()
         else:
@@ -554,18 +610,23 @@ class RolloutFn:
             *(self.dims + [0] * (MAX_LAYERS + 1 - len(self.dims))))
         ptr = lambda t: ctypes.c_void_p(t.data_ptr() if t is not None
                                         else 0)
+        ns = self.n_state
+        qacc = qacc_o = None
+        if self.spec.carry_qacc:
+            qacc, qacc_o = state[5], out[5]
         obs = rews = dones = ctrls = None
         if self.emit_obs:
-            obs, rews, dones = out[7:10]
+            obs, rews, dones = out[ns + 2:ns + 5]
             if self.policy is not None:
-                ctrls = out[10]
-        stream = torch.cuda.current_stream(qpos.device).cuda_stream
+                ctrls = out[ns + 5]
+        stream = torch.cuda.current_stream(state[0].device).cuda_stream
         err = built.launch(
-            ptr(qpos), ptr(qvel), ptr(act), ptr(ws), ptr(time),
+            *(ptr(t) for t in state[:5]), ptr(qacc),
             ptr(ctrl), ptr(seed), ptr(packed), ctypes.c_int(n_params),
             ptr(eq_active), ctypes.c_int(max(len(self.dims) - 1, 0)), dims,
             ctypes.c_float(self.explore_sigma),
-            *(ptr(t) for t in out[:7]),
+            *(ptr(t) for t in out[:5]), ptr(qacc_o),
+            *(ptr(t) for t in out[ns:ns + 2]),
             ptr(obs), ptr(rews), ptr(dones), ptr(ctrls),
             ctypes.c_int(self.batch), ctypes.c_int(self.steps),
             ctypes.c_void_p(stream))
@@ -576,19 +637,21 @@ class RolloutFn:
         return tuple(out)
 
     # ----- the plain version -----
-    def plain(self, qpos, qvel, act, ws, time, ctrl=None, seed=None,
-              params=None, eq_active=None):
-        """The plain PyTorch version on ``qpos.device``: the scalar graph
-        on (B,) tensors in a Python K loop (on a card, its step replayed
-        from a CUDA graph: see :class:`_GraphedStep`)."""
-        self._check(qpos, qvel, act, ws, time, ctrl, seed, params,
-                    eq_active)
+    def plain(self, *args, **kw):
+        """The plain PyTorch version on the state's device: the scalar
+        graph on (B,) tensors in a Python K loop (on a card, its step
+        replayed from a CUDA graph: see :class:`_GraphedStep`)."""
+        return self._plain(*self._bind(args, kw))
+
+    def _plain(self, state, ctrl, seed, params, eq_active):
+        self._check(state, ctrl, seed, params, eq_active)
         s, B, K = self.spec, self.batch, self.steps
+        qpos, qvel, act, ws, time = state[:5]
         dev, dtype = qpos.device, qpos.dtype
         key = (dev, dtype)
         if key not in self._plain_steps:
             bk = sg.TorchBackend(B, dtype, dev)
-            step = sg.build_step(self.model, bk)
+            step = sg.build_step(self.model, bk, want_qacc=s.carry_qacc)
             if dev.type == "cuda":
                 step = _GraphedStep(bk, step, s)
             else:
@@ -605,15 +668,19 @@ class RolloutFn:
         v = [qvel[i] for i in range(s.nv)]
         a = [act[i] for i in range(s.na)]
         w = [ws[i] for i in range(s.nv)]
+        qa = [state[5][i] for i in range(s.nv)] if s.carry_qacc else None
         n = torch.round(time[0] * (1.0 / h)).to(torch.int32)
         rew = torch.zeros(B, device=dev, dtype=dtype)
         ndiv = torch.zeros(B, device=dev, dtype=dtype)
         outs = self._alloc(qpos)
+        ns = self.n_state
         if self.policy is not None:
             layers = [(params[2 * i].to(dtype), params[2 * i + 1].to(dtype))
                       for i in range(len(self.dims) - 1)]
         for k in range(K):
-            obs = torch.stack([bk.full(o) for o in observe(q, v)])
+            # the clock reads the step counter, as the kernel does
+            clk = n.to(dtype) * h if s.nsensordata else None
+            obs = torch.stack([bk.full(o) for o in observe(q, v, qa, clk)])
             if self.policy is not None:
                 cmat = mlp_forward(layers, obs)
                 if self.explore_sigma > 0.0:
@@ -627,11 +694,11 @@ class RolloutFn:
                 cmat = None
                 c = [ctrl[k, u] for u in range(s.nu)]
             if self.emit_obs:
-                outs[7][k] = obs
+                outs[ns + 2][k] = obs
                 if self.policy is not None:
-                    outs[10][k] = cmat
+                    outs[ns + 5][k] = cmat
 
-            q, v, a, w = step(q, v, a, w, c, eq_active)
+            q, v, a, w, *qa1 = step(q, v, a, w, c, eq_active)
             n = n + 1
             # divergence + time limit (bad before the reward, so a NaN
             # reward from a diverged state is masked, not accumulated)
@@ -644,8 +711,8 @@ class RolloutFn:
             rew_t = torch.where(bad, 0.0, bk.full(reward(q, v, c)))
             rew = rew + rew_t
             if self.emit_obs:
-                outs[8][k] = rew_t
-                outs[9][k] = done.to(dtype)
+                outs[ns + 3][k] = rew_t
+                outs[ns + 4][k] = done.to(dtype)
 
             sbits = signed_unit(
                 philox_bits(seed_i, SALT_RESET, k, s.n_draws, env), dtype)
@@ -658,6 +725,9 @@ class RolloutFn:
                  for i in range(s.nv)]
             a = [torch.where(done, 0.0, bk.full(a[i])) for i in range(s.na)]
             w = [torch.where(done, 0.0, bk.full(w[i])) for i in range(s.nv)]
+            if s.carry_qacc:
+                # reset lanes: the qacc carry is zero, as after a reset
+                qa = [torch.where(done, 0.0, bk.full(x)) for x in qa1[0]]
             n = torch.where(done, 0, n)
 
         outs[0].copy_(torch.stack(q))
@@ -666,8 +736,10 @@ class RolloutFn:
         outs[2].copy_(torch.stack(a) if s.na else act)
         outs[3].copy_(torch.stack(w))
         outs[4][0] = n.to(dtype) * h
-        outs[5][0] = rew
-        outs[6][0] = ndiv
+        if s.carry_qacc:
+            outs[5].copy_(torch.stack(qa))
+        outs[ns][0] = rew
+        outs[ns + 1][0] = ndiv
         return tuple(outs)
 
 

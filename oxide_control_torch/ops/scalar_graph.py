@@ -4,8 +4,9 @@ The port of ``oxide_control_tpu/ops/scalar_graph.py`` for the control
 suite's class widened by stateful and muscle actuators, fixed and spatial
 tendons (sphere and cylinder wraps), friction loss, equality constraints,
 every narrowphase pair of the reference, ball joints, and elliptic cones
-and condim 4/6 (see :func:`supports`).  The whole ``mj_step`` of one env
-is built as a graph of elementwise operations on per-env scalars; the
+and condim 4/6 (see :func:`supports`), with the in-kernel sensors the
+observation hooks read (:func:`build_sensors`).  The whole ``mj_step`` of
+one env is built as a graph of elementwise operations on per-env scalars; the
 model's structure (tree topology, joint axes, geom pairs, constraint
 rows) is compiled away at build time:
 
@@ -51,6 +52,8 @@ from ..model import (
     Integrator,
     JointType,
     Model,
+    ObjType,
+    SensorType,
     SolverType,
     TrnType,
 )
@@ -1311,7 +1314,7 @@ def _fk_chain(bk, model, mc, sub_mask, qpos, com: bool = True):
     )
 
 
-def build_step(model: Model, bk):
+def build_step(model: Model, bk, want_qacc: bool = False):
     """Build the scalar-graph step on backend ``bk``.
 
     Returns ``step(qpos, qvel, act, warmstart, ctrl, eq_act=None) ->
@@ -1319,6 +1322,9 @@ def build_step(model: Model, bk):
     (one per generalized coordinate / activation / actuator).  ``eq_act``
     is one bool lane per equality (Data.eq_active); without it the
     equalities active at build time are always on (see :func:`_eq_rows`).
+    ``want_qacc`` appends the step's stage-1 constrained qacc, the
+    acceleration the sensors read (mj_step computes them before it
+    integrates; under RK4 that is the first forward pass, not stage 4's).
     """
     reason = unsupported_reason(model)
     if reason is not None:
@@ -1774,7 +1780,8 @@ def build_step(model: Model, bk):
                             for i in range(nv)]
             qpos_new = integrate_pos_sg(qpos, qvel_new, h)
             act_new = advance_act_sg(act, fw["act_dot"], h)
-            return qpos_new, qvel_new, act_new, list(fw["qacc"])
+            out = qpos_new, qvel_new, act_new, list(fw["qacc"])
+            return out + (list(fw["qacc"]),) if want_qacc else out
 
     else:  # RK4 (mj_RungeKutta, N=4): 4 chained forward passes
 
@@ -1817,7 +1824,8 @@ def build_step(model: Model, bk):
             # the final act update goes through mj_advance (the exact
             # filter update with the RK-weighted derivative, the clamp)
             act_new = advance_act_sg(act, da, h)
-            return qpos_new, qvel_new, act_new, list(fw["qacc"])
+            out = qpos_new, qvel_new, act_new, list(fw["qacc"])
+            return out + (list(accs[0]),) if want_qacc else out
 
     return step
 
@@ -1843,6 +1851,342 @@ def build_fk(model: Model, bk):
         return out
 
     return fk
+
+
+# ---------------------------------------------------------------------------
+# in-kernel sensors (mj_sensorPos / mj_sensorVel / mj_sensorAcc)
+# ---------------------------------------------------------------------------
+
+# the sensor family the scalar graph evaluates from (qpos, qvel, qacc):
+# kinematics, velocities, tendon and transmission state, and the
+# accelerometer/frame-acceleration family from the cacc propagation.
+# Touch, force, torque, rangefinder, subtree momenta, energies and the
+# geometry-distance family stay on the general path.
+_KERNEL_SENSORS = (
+    SensorType.JOINTPOS, SensorType.JOINTVEL, SensorType.TENDONPOS,
+    SensorType.TENDONVEL, SensorType.ACTUATORPOS, SensorType.ACTUATORVEL,
+    SensorType.BALLQUAT, SensorType.BALLANGVEL,
+    SensorType.FRAMEPOS, SensorType.FRAMEQUAT, SensorType.FRAMEXAXIS,
+    SensorType.FRAMEYAXIS, SensorType.FRAMEZAXIS,
+    SensorType.FRAMELINVEL, SensorType.FRAMEANGVEL,
+    SensorType.FRAMELINACC, SensorType.FRAMEANGACC,
+    SensorType.GYRO, SensorType.VELOCIMETER, SensorType.ACCELEROMETER,
+    SensorType.MAGNETOMETER, SensorType.SUBTREECOM, SensorType.CLOCK,
+)
+# the sensors that read qacc: the previous step's stage-1 qacc, carried
+_ACC_SENSORS = (
+    SensorType.ACCELEROMETER, SensorType.FRAMELINACC,
+    SensorType.FRAMEANGACC,
+)
+_FRAME_OBJ = (ObjType.SITE, ObjType.BODY, ObjType.XBODY, ObjType.GEOM)
+_FRAME_SENSORS = (
+    SensorType.FRAMEPOS, SensorType.FRAMEQUAT, SensorType.FRAMEXAXIS,
+    SensorType.FRAMEYAXIS, SensorType.FRAMEZAXIS, SensorType.FRAMELINVEL,
+    SensorType.FRAMEANGVEL, SensorType.FRAMELINACC, SensorType.FRAMEANGACC,
+)
+# sensors whose values are not clipped at their cutoff (unit quaternions
+# and frame axes)
+_NO_CUTOFF = (
+    SensorType.BALLQUAT, SensorType.FRAMEQUAT, SensorType.FRAMEXAXIS,
+    SensorType.FRAMEYAXIS, SensorType.FRAMEZAXIS,
+)
+
+
+def unsupported_sensor_reason(model: Model) -> str | None:
+    """Why :func:`build_sensors` cannot evaluate the model's sensors
+    (None if it can): every sensor in the kernel family, and frame
+    sensors attached to (and referred to) sites, bodies or geoms."""
+    for i in range(model.nsensor):
+        st = SensorType(model.sensor_type[i])
+        if st not in _KERNEL_SENSORS:
+            return (f"sensor {i} ({st.name}) is outside the in-kernel "
+                    "sensor family; it stays on the general path (ROADMAP "
+                    "Queue A item 11)")
+        if st not in _FRAME_SENSORS:
+            continue
+        frames = [("object", model.sensor_objtype[i])]
+        if model.sensor_refid[i] >= 0:
+            frames.append(("reference", model.sensor_reftype[i]))
+        for kind, ot in frames:
+            if ObjType(ot) not in _FRAME_OBJ:
+                return (f"sensor {i} ({st.name}) has a {ObjType(ot).name} "
+                        f"{kind} frame; frame sensors in the kernel read "
+                        "sites, bodies and geoms, others stay on the "
+                        "general path (ROADMAP Queue A item 11)")
+    return None
+
+
+def sensors_supported(model: Model) -> bool:
+    """True if every sensor of the model is in the kernel family (see
+    :func:`unsupported_sensor_reason`)."""
+    return unsupported_sensor_reason(model) is None
+
+
+def _sv_zero():
+    return ((0.0, 0.0, 0.0), (0.0, 0.0, 0.0))
+
+
+def _sv_add(a, b):
+    return (vadd3(a[0], b[0]), vadd3(a[1], b[1]))
+
+
+def _sv_scale(a, s):
+    return (vscale3(a[0], s), vscale3(a[1], s))
+
+
+def _com_vel_sg(model, fk, qvel):
+    """cvel per body and cdof_dot per dof (mj_comVel), in the general
+    path's order."""
+    cvel = [_sv_zero()] * model.nbody
+    cdof_dot = [_sv_zero()] * model.nv
+    cdof = fk["cdof"]
+    for b in range(1, model.nbody):
+        v = cvel[model.body_parentid[b]]
+        for j in smooth.body_joints(model, b):
+            jt = model.jnt_type[j]
+            vadr = model.jnt_dofadr[j]
+            if jt == JointType.FREE:
+                for i in range(3):
+                    v = _sv_add(v, _sv_scale(cdof[vadr + i], qvel[vadr + i]))
+                for i in range(3):
+                    cdof_dot[vadr + 3 + i] = motion_cross(
+                        v, cdof[vadr + 3 + i])
+                for i in range(3):
+                    v = _sv_add(
+                        v, _sv_scale(cdof[vadr + 3 + i], qvel[vadr + 3 + i]))
+            elif jt == JointType.BALL:
+                for i in range(3):
+                    cdof_dot[vadr + i] = motion_cross(v, cdof[vadr + i])
+                for i in range(3):
+                    v = _sv_add(v, _sv_scale(cdof[vadr + i], qvel[vadr + i]))
+            else:
+                cdof_dot[vadr] = motion_cross(v, cdof[vadr])
+                v = _sv_add(v, _sv_scale(cdof[vadr], qvel[vadr]))
+        cvel[b] = v
+    return cvel, cdof_dot
+
+
+def _cacc_sg(model, fk, qvel, qacc, cdof_dot):
+    """Body spatial accelerations with gravity (mj_rnePostConstraint's
+    cacc) from ``qacc`` and the velocity stage's cdof_dot."""
+    if model.opt.disable_gravity:
+        a0 = _sv_zero()
+    else:
+        g = [float(x) for x in model.opt.gravity]
+        a0 = ((0.0, 0.0, 0.0), (-g[0], -g[1], -g[2]))
+    cdof = fk["cdof"]
+    cacc = [a0] * model.nbody
+    for b in range(1, model.nbody):
+        a = cacc[model.body_parentid[b]]
+        adr, num = model.body_dofadr[b], model.body_dofnum[b]
+        for i in range(adr, adr + num):
+            a = _sv_add(a, _sv_add(_sv_scale(cdof_dot[i], qvel[i]),
+                                   _sv_scale(cdof[i], qacc[i])))
+        cacc[b] = a
+    return cacc
+
+
+def _point_vel_sg(model, fk, cvel, b, p):
+    """(omega, v): world velocity of point p on body b
+    (mj_objectVelocity, flg_local = 0)."""
+    o = fk["subtree_com"][model.body_rootid[b]]
+    w, vl = cvel[b]
+    return w, vadd3(vl, cross3(w, vsub3(p, o)))
+
+
+def _point_acc_sg(model, fk, cvel, cacc, b, p):
+    """(alpha, a): world acceleration of point p on body b
+    (mj_objectAcceleration: the spatial transform plus omega x v)."""
+    o = fk["subtree_com"][model.body_rootid[b]]
+    alpha, al = cacc[b]
+    a = vadd3(al, cross3(alpha, vsub3(p, o)))
+    w, v = _point_vel_sg(model, fk, cvel, b, p)
+    return alpha, vadd3(a, cross3(w, v))
+
+
+def _obj_pose_sg(model, mc, fk, objtype, oid):
+    """(pos, mat as a row-major 9-tuple, body id) of a frame sensor's
+    site, geom, body (inertial frame) or xbody (body frame)."""
+    ot = ObjType(objtype)
+    if ot in (ObjType.SITE, ObjType.GEOM):
+        b, lpos, lquat = ((model.site_bodyid[oid], mc.site_pos[oid],
+                           mc.site_quat[oid]) if ot == ObjType.SITE else
+                          (model.geom_bodyid[oid], mc.geom_pos[oid],
+                           mc.geom_quat[oid]))
+        pos = vadd3(fk["xpos"][b], mat_vec(fk["xmat"][b], tuple(lpos)))
+        return pos, _mat_mul_const(fk["xmat"][b],
+                                   quat_to_mat(tuple(lquat))), b
+    if ot == ObjType.BODY:
+        mat = _mat_mul_const(fk["xmat"][oid],
+                             quat_to_mat(tuple(mc.body_iquat[oid])))
+        return fk["xipos"][oid], mat, oid
+    return fk["xpos"][oid], fk["xmat"][oid], oid
+
+
+def _obj_quat_sg(model, mc, fk, objtype, oid):
+    """World orientation of a frame sensor's object (not normalized)."""
+    ot = ObjType(objtype)
+    if ot == ObjType.SITE:
+        return qmul(fk["xquat"][model.site_bodyid[oid]],
+                    tuple(mc.site_quat[oid]))
+    if ot == ObjType.GEOM:
+        return qmul(fk["xquat"][model.geom_bodyid[oid]],
+                    tuple(mc.geom_quat[oid]))
+    if ot == ObjType.BODY:
+        return qmul(fk["xquat"][oid], tuple(mc.body_iquat[oid]))
+    return fk["xquat"][oid]
+
+
+def _qconj(q):
+    return (q[0], neg(q[1]), neg(q[2]), neg(q[3]))
+
+
+def _act_len_vel(bk, model, mc, u, fk, bd_mask, qpos, qvel, ten):
+    """(length, velocity) of actuator ``u`` (mj_transmission): the length
+    from :func:`_transmission`, the velocity as its moment . qvel; a
+    tendon transmission scales the tendon's own length and velocity."""
+    if TrnType(model.actuator_trntype[u]) == TrnType.TENDON:
+        t = model.actuator_trnid[u]
+        gear = float(mc.actuator_gear[u][0])
+        return mul(gear, ten[0][t]), mul(gear, ten[2][t])
+    moment, length = _transmission(bk, model, mc, u, fk, bd_mask, qpos, ten,
+                                   True)
+    return length, _jdotv(moment, qvel)
+
+
+def build_sensors(model: Model, bk):
+    """Scalar-graph sensors on backend ``bk``.
+
+    Returns ``sens(qpos, qvel, qacc=None, time=None) -> list`` of
+    ``model.nsensordata`` values, element for element with the reference's
+    ``build_sensors`` (the general path's sensor_pos/vel/acc) for the
+    kernel family (:func:`sensors_supported`), cutoffs included.  ``qacc``
+    is the acceleration the accelerometer family reads (the step's
+    stage-1 qacc: mj_step computes sensors before integrating, so the
+    values after step k read step k's entry state); ``time`` feeds CLOCK.
+    """
+    reason = unsupported_sensor_reason(model)
+    if reason is not None:
+        raise ValueError(reason)
+    mc = _ModelConsts(model)
+    sub_mask = smooth.subtree_mask(model)
+    bd_mask = smooth.body_dof_mask(model)
+    types = [SensorType(t) for t in model.sensor_type]
+    need_vel = any(
+        t in (SensorType.VELOCIMETER, SensorType.GYRO,
+              SensorType.FRAMELINVEL, SensorType.FRAMEANGVEL)
+        or t in _ACC_SENSORS for t in types)
+    need_acc = any(t in _ACC_SENSORS for t in types)
+    need_ten = any(
+        t in (SensorType.TENDONPOS, SensorType.TENDONVEL)
+        or t in (SensorType.ACTUATORPOS, SensorType.ACTUATORVEL)
+        and TrnType(model.actuator_trntype[model.sensor_objid[i]])
+        == TrnType.TENDON for i, t in enumerate(types))
+    cutoff = [float(x) for x in _np(model.sensor_cutoff)] if types else []
+
+    def sens(qpos, qvel, qacc=None, time=None):
+        qpos, qvel = list(qpos), list(qvel)
+        fk = _fk_chain(bk, model, mc, sub_mask, qpos)
+        cvel = cdof_dot = cacc = ten = None
+        if need_vel:
+            cvel, cdof_dot = _com_vel_sg(model, fk, qvel)
+        if need_acc:
+            if qacc is None:
+                raise ValueError("acceleration sensors need qacc")
+            cacc = _cacc_sg(model, fk, qvel, list(qacc), cdof_dot)
+        if need_ten:
+            ten = _tendon_len_mom_sg(bk, model, mc, qpos, qvel, fk, bd_mask)
+        out = [0.0] * model.nsensordata
+        for i, st in enumerate(types):
+            oid, rid = model.sensor_objid[i], model.sensor_refid[i]
+            ot, rt = model.sensor_objtype[i], model.sensor_reftype[i]
+            if st == SensorType.JOINTPOS:
+                val = [qpos[model.jnt_qposadr[oid]]]
+            elif st == SensorType.JOINTVEL:
+                val = [qvel[model.jnt_dofadr[oid]]]
+            elif st == SensorType.TENDONPOS:
+                val = [ten[0][oid]]
+            elif st == SensorType.TENDONVEL:
+                val = [ten[2][oid]]
+            elif st in (SensorType.ACTUATORPOS, SensorType.ACTUATORVEL):
+                length, vel = _act_len_vel(bk, model, mc, oid, fk, bd_mask,
+                                           qpos, qvel, ten)
+                val = [length if st == SensorType.ACTUATORPOS else vel]
+            elif st == SensorType.BALLQUAT:
+                q = model.jnt_qposadr[oid]
+                val = list(qnormalize(bk, tuple(qpos[q:q + 4])))
+            elif st == SensorType.BALLANGVEL:
+                v = model.jnt_dofadr[oid]
+                val = qvel[v:v + 3]
+            elif st == SensorType.FRAMEPOS:
+                pos, _, _ = _obj_pose_sg(model, mc, fk, ot, oid)
+                if rid >= 0:
+                    rpos, rmat, _ = _obj_pose_sg(model, mc, fk, rt, rid)
+                    val = list(mat_vec_t(rmat, vsub3(pos, rpos)))
+                else:
+                    val = list(pos)
+            elif st == SensorType.FRAMEQUAT:
+                q = _obj_quat_sg(model, mc, fk, ot, oid)
+                if rid >= 0:
+                    q = qmul(_qconj(_obj_quat_sg(model, mc, fk, rt, rid)), q)
+                val = list(qnormalize(bk, q))
+            elif st in (SensorType.FRAMEXAXIS, SensorType.FRAMEYAXIS,
+                        SensorType.FRAMEZAXIS):
+                _, mat, _ = _obj_pose_sg(model, mc, fk, ot, oid)
+                axis = mat_col(mat, int(st) - int(SensorType.FRAMEXAXIS))
+                if rid >= 0:
+                    _, rmat, _ = _obj_pose_sg(model, mc, fk, rt, rid)
+                    axis = mat_vec_t(rmat, axis)
+                val = list(axis)
+            elif st == SensorType.SUBTREECOM:
+                val = list(fk["subtree_com"][oid])
+            elif st == SensorType.MAGNETOMETER:
+                _, smat, _ = _obj_pose_sg(model, mc, fk, ObjType.SITE, oid)
+                mag = tuple(float(x) for x in model.opt.magnetic)
+                val = list(mat_vec_t(smat, mag))
+            elif st in (SensorType.VELOCIMETER, SensorType.GYRO):
+                spos, smat, b = _obj_pose_sg(model, mc, fk, ObjType.SITE,
+                                             oid)
+                if st == SensorType.VELOCIMETER:
+                    vec = _point_vel_sg(model, fk, cvel, b, spos)[1]
+                else:
+                    vec = _point_vel_sg(model, fk, cvel, b,
+                                        (0.0, 0.0, 0.0))[0]
+                val = list(mat_vec_t(smat, vec))
+            elif st in (SensorType.FRAMELINVEL, SensorType.FRAMEANGVEL):
+                pos, _, b = _obj_pose_sg(model, mc, fk, ot, oid)
+                w, v = _point_vel_sg(model, fk, cvel, b, pos)
+                lin = st == SensorType.FRAMELINVEL
+                if rid >= 0:
+                    rpos, rmat, rb = _obj_pose_sg(model, mc, fk, rt, rid)
+                    rw, rv = _point_vel_sg(model, fk, cvel, rb, rpos)
+                    rel = (vsub3(vsub3(v, rv), cross3(rw, vsub3(pos, rpos)))
+                           if lin else vsub3(w, rw))
+                    val = list(mat_vec_t(rmat, rel))
+                else:
+                    val = list(v if lin else w)
+            elif st == SensorType.ACCELEROMETER:
+                spos, smat, b = _obj_pose_sg(model, mc, fk, ObjType.SITE,
+                                             oid)
+                _, a = _point_acc_sg(model, fk, cvel, cacc, b, spos)
+                val = list(mat_vec_t(smat, a))
+            elif st == SensorType.FRAMELINACC:
+                pos, _, b = _obj_pose_sg(model, mc, fk, ot, oid)
+                val = list(_point_acc_sg(model, fk, cvel, cacc, b, pos)[1])
+            elif st == SensorType.FRAMEANGACC:
+                _, _, b = _obj_pose_sg(model, mc, fk, ot, oid)
+                val = list(cacc[b][0])
+            else:  # CLOCK
+                if time is None:
+                    raise ValueError("the clock sensor needs time")
+                val = [time]
+            if cutoff[i] > 0 and st not in _NO_CUTOFF:
+                val = [bk.clip(x, -cutoff[i], cutoff[i]) for x in val]
+            adr = model.sensor_adr[i]
+            out[adr:adr + len(val)] = val
+        return out
+
+    return sens
 
 
 # ---------------------------------------------------------------------------
@@ -3062,7 +3406,9 @@ def _cone_hess_sg(bk, c, jar3, g=None):
     mub2 = c["mu0"] * c["mu0"] / c["impratio"]
     D0 = c["D"][0]
     a = 1.0 / bk.maximum(D0, 1e-30)
-    b_ = mub2 / bk.maximum(D0, 1e-30)
+    # one rounding, as the reference's division: torch (and the emitter
+    # after it) would take mub2 / x as reciprocal(x) * mub2
+    b_ = bk.full(mub2) / bk.maximum(D0, 1e-30)
     wa = 1.0 / (1.0 + mub2)
     wb = mub2 / (1.0 + mub2)
     t = wa * g[0] + wb * Q

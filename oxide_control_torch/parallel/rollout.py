@@ -19,10 +19,27 @@ from ..ops import scalar_graph as sg
 from ..state import Data
 
 
+def unsupported_reason(benv: BatchedEnvironment) -> str | None:
+    """Why (model, task) cannot run in the rollout kernel (None if they
+    can): the model must be in the port's scalar-graph class, the task
+    must have in-kernel hooks, and a task that observes sensors needs
+    every sensor in the kernel family."""
+    reason = sg.unsupported_reason(benv.model)
+    if reason is not None:
+        return reason
+    if not hasattr(benv.task, "kernel_hooks"):
+        return "the task has no kernel_hooks"
+    if benv.task.kernel_hooks(benv.model).needs_sensors:
+        reason = sg.unsupported_sensor_reason(benv.model)
+        if reason is not None:
+            return f"the task observes sensors: {reason}"
+    return None
+
+
 def fast_rollout_supported(benv: BatchedEnvironment) -> bool:
-    """True if (model, task) qualify for the rollout kernel: the model is
-    in the port's scalar-graph class and the task has in-kernel hooks."""
-    return sg.supports(benv.model) and hasattr(benv.task, "kernel_hooks")
+    """True if (model, task) qualify for the rollout kernel (see
+    :func:`unsupported_reason`)."""
+    return unsupported_reason(benv) is None
 
 
 class Trajectory:
@@ -61,9 +78,10 @@ class FastRollout:
 
     def __init__(self, benv: BatchedEnvironment, steps_per_call: int,
                  policy=None, collect: bool = False):
-        if not fast_rollout_supported(benv):
-            reason = sg.unsupported_reason(benv.model) or \
-                "the task has no kernel_hooks"
+        reason = unsupported_reason(benv)
+        if reason is not None:
+            # there is no general path to fall back to yet (ROADMAP Queue A
+            # item 11)
             raise ValueError(f"model/task not kernel-eligible: {reason}")
         model = benv.model
         self.benv = benv
@@ -77,6 +95,10 @@ class FastRollout:
             model, benv.num_envs, steps_per_call, hooks, emit_obs=collect,
             policy=policy,
         )
+        # an accelerometer-family sensor observation carries the previous
+        # step's stage-1 qacc as a sixth state element
+        self._carry_qacc = self.kernel.spec.carry_qacc
+        self._n_state = self.kernel.n_state
 
     def init(self, generator: torch.Generator):
         """Batched reset -> coordinate-major kernel state."""
@@ -84,17 +106,19 @@ class FastRollout:
 
     def pack(self, data: Data):
         """Env-major Data -> kernel state ``(qpos (nq,B), qvel (nv,B),
-        act (max(na,1),B), warmstart (nv,B), time (1,B))``; na == 0
-        models carry one zero act row."""
+        act (max(na,1),B), warmstart (nv,B), time (1,B)[, qacc (nv,B)])``;
+        na == 0 models carry one zero act row, and a task that observes an
+        accelerometer-family sensor carries ``data.qacc``."""
         b = data.qpos.shape[0]
         act = data.act.T
         if act.shape[0] == 0:
             act = torch.zeros((1, b), dtype=data.qpos.dtype,
                               device=data.qpos.device)
-        return tuple(x.contiguous() for x in (
-            data.qpos.T, data.qvel.T, act, data.qacc_warmstart.T,
-            data.time[None, :],
-        ))
+        state = (data.qpos.T, data.qvel.T, act, data.qacc_warmstart.T,
+                 data.time[None, :])
+        if self._carry_qacc:
+            state += (data.qacc.T,)
+        return tuple(x.contiguous() for x in state)
 
     def run(self, state, generator: torch.Generator, eq_active=None):
         """One K-step kernel call -> ``(new_state, Trajectory)``.  The
@@ -129,9 +153,10 @@ class FastRollout:
         seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
                              device=self.device, dtype=torch.int32)
         out = self.kernel(*state, ctrl, seed, params, eq_active)
-        traj = Trajectory(reward_sum=out[5][0], diverged=out[6][0])
+        ns = self._n_state
+        traj = Trajectory(reward_sum=out[ns][0], diverged=out[ns + 1][0])
         if self.collect:
-            traj.obs, traj.rewards, traj.dones = out[7:10]
+            traj.obs, traj.rewards, traj.dones = out[ns + 2:ns + 5]
             if self.policy is not None:
-                traj.ctrls = out[10]
-        return tuple(out[:5]), traj
+                traj.ctrls = out[ns + 5]
+        return tuple(out[:ns]), traj

@@ -1,7 +1,8 @@
 """Simulation state: the port's analog of MuJoCo's ``mjData``, core fields.
 
 The rollout kernel carries only the core state of each env -- qpos, qvel,
-act, the Newton warmstart and time -- so this slice ports those fields of
+act, the Newton warmstart, time and, for a task that observes an
+accelerometer-family sensor, qacc -- so the port has those fields of
 ``oxide_control_tpu/state.py`` (``make_data``).  Arrays are torch tensors;
 a batch is the same structure with a leading env axis.  The derived
 quantities of the general path (frames, inertias, contacts, sensors) come
@@ -28,6 +29,7 @@ class Data:
     act: torch.Tensor             # (na,)
     ctrl: torch.Tensor            # (nu,)
     qacc_warmstart: torch.Tensor  # (nv,)
+    qacc: torch.Tensor            # (nv,) constrained acceleration
 
     def replace(self, **updates) -> "Data":
         return dataclasses.replace(self, **updates)
@@ -52,4 +54,5 @@ def make_data(model: Model, device, dtype: torch.dtype | None = None,
         act=z(model.na),
         ctrl=z(model.nu),
         qacc_warmstart=z(model.nv),
+        qacc=z(model.nv),
     )

@@ -2,7 +2,9 @@
 
 from __future__ import annotations
 
+import dataclasses
 import functools
+import inspect
 import os
 
 import numpy as np
@@ -68,3 +70,38 @@ def randomize_limited_joints(model: Model, qpos: torch.Tensor,
         qpos[:, adr] = 0.5 * (lo + hi) + uniform(
             generator, -half, half, qpos.shape[:1], qpos.dtype, qpos.device)
     return qpos
+
+
+class SensorObsWrapper:
+    """Task wrapper that appends the model's sensordata to the
+    observation: in the rollout kernel, the sensor rows computed in the
+    kernel at the pre-step state (``EnvHooks.needs_sensors``).  The port
+    of the reference's ``suite/common.py:SensorObsWrapper``; its
+    general-path half (``observe(model, data)`` on ``data.sensordata``)
+    comes with ROADMAP Queue A item 11.
+
+    The base task must have ``kernel_hooks``; every sensor of the model
+    must be in the kernel family (``scalar_graph.sensors_supported``), or
+    ``FastRollout`` refuses the task."""
+
+    def __init__(self, base):
+        self._base = base
+
+    def __getattr__(self, name):
+        return getattr(self._base, name)
+
+    def kernel_hooks(self, model: Model):
+        base = self._base.kernel_hooks(model)
+        base_obs = base.observe
+        base_params = (set(inspect.signature(base_obs).parameters)
+                       if base_obs is not None else set())
+
+        def observe(bk, q, v, sensordata, **kw):
+            # pass fk (or any other keyword) on only if the base takes it
+            kw = {k: x for k, x in kw.items() if k in base_params}
+            rows = base_obs(bk, q, v, **kw) if base_obs is not None else []
+            return list(rows) + list(sensordata)
+
+        return dataclasses.replace(
+            base, observe=observe, n_obs=base.n_obs + model.nsensordata,
+            needs_sensors=True)

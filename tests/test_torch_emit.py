@@ -6,8 +6,9 @@ version): the Euler step (hopper, cheetah), the RK4 step (cartpole), the
 free joint (the sphere), the muscle on a wrapped spatial tendon (the arm),
 fixed tendons with friction loss and limits, stateful actuators,
 equality rows and the narrowphase pairs, ball joints (the cable),
-elliptic cones, and walker's reward, which reads the FK.  Every kernel
-source the smoke built before ball joints and cones were ported stays
+elliptic cones, walker's reward, which reads the FK, and the sensor
+rows with the qacc carry.  Every kernel source the smoke builds is pinned
+by its hash, so porting a later part leaves the earlier ones
 byte-identical.  Its float form is checked for stray
 double literals and for the Newton/line-search and wrap-search loops that
 keep it small.
@@ -325,10 +326,86 @@ def test_emitted_ball_and_cone_bodies_match_torch_backend(name, tmp_path):
         np.testing.assert_allclose(cw, _stack(w), rtol=0, atol=1e-9)
 
 
+def _sensor_env(name):
+    """(model in f64, task) of a sensor-observing source."""
+    from test_torch_sensors import SENSORS_ALL_RK4
+
+    from oxide_control_torch import bench_configs
+    from oxide_control_torch.suite.common import SensorObsWrapper
+
+    if name == "walker-walk-tendon-sensors":
+        return bench_configs.walker_walk_tendon_sensors(np.float64)
+    return (load_model_from_xml(SENSORS_ALL_RK4),
+            SensorObsWrapper(bench_configs.BenchTask()))
+
+
+@pytest.mark.parametrize("name", ["walker-walk-tendon-sensors",
+                                  "sensors-all-rk4"])
+def test_emitted_sensor_sources_match_torch_backend(name, tmp_path):
+    """Sensor-observing sources through g++ in double (the walker row:
+    Euler, gyro, accelerometer, velocimeter, framepos; the smoke's
+    sensors-all model under RK4: every sensor of the kernel family): the
+    step with its stage-1 qacc output and the observation with its
+    sensor rows, read from the carried qacc and the clock, within 1e-9
+    of the torch backend over 3 steps."""
+    m, task = _sensor_env(name)
+    hooks = task.kernel_hooks(m)
+    src = mk.kernel_source(m, hooks, "double").text + r"""
+extern "C" void run_batch(const double* q, const double* v, const double* a,
+                          const double* w, const double* c, const double* qa,
+                          const double* clk, double* qo, double* vo,
+                          double* ao, double* wo, double* qao, double* obs,
+                          int n) {
+  for (int b = 0; b < n; ++b) {
+    oxc_observe(q + b * OXC_NQ, v + b * OXC_NV, qa + b * OXC_NV, clk + b,
+                obs + b * OXC_NOBS);
+    oxc_step(q + b * OXC_NQ, v + b * OXC_NV, a + b * OXC_NA, w + b * OXC_NV,
+             c + b * OXC_NU, qo + b * OXC_NQ, vo + b * OXC_NV,
+             ao + b * OXC_NA, wo + b * OXC_NV, qao + b * OXC_NV);
+  }
+}
+"""
+    assert "#define OXC_CARRY_QACC 1" in src
+    lib, _ = _gxx(src, tmp_path)
+    rng = np.random.default_rng(4)
+    qpos = np.tile(np.asarray(m.qpos0), (B, 1)) + rng.uniform(
+        -0.1, 0.1, (B, m.nq))
+    qvel, qacc = (rng.uniform(-1, 1, (B, m.nv)) for _ in range(2))
+    ctrl = rng.uniform(-1, 1, (B, m.nu))
+    clk = rng.integers(0, 500, B) * float(m.opt.timestep)
+    bk = sg.TorchBackend(B, torch.float64, "cpu")
+    step = sg.build_step(m, bk, want_qacc=True)
+    observe = mk.bind_hooks(m, hooks, bk)[0]
+    q, v, w, qa, c = (_cols(x) for x in (qpos, qvel, np.zeros((B, m.nv)),
+                                         qacc, ctrl))
+    cq, cv, cw, cqa, cc = (np.ascontiguousarray(x) for x in (
+        qpos, qvel, np.zeros((B, m.nv)), qacc, ctrl))
+    ca = np.zeros((B, m.na))
+    ptr = lambda x: x.ctypes.data_as(ctypes.c_void_p)
+    # a value the graph folded to a constant is a python float
+    rows = lambda xs: np.stack([np.broadcast_to(np.asarray(x, float), (B,))
+                                for x in xs], axis=1)
+    for _ in range(3):
+        obs = observe(q, v, qa, torch.tensor(clk))
+        q, v, _, w, qa = step(q, v, [], w, c)
+        qo, vo, wo, qao = (np.zeros_like(x) for x in (cq, cv, cw, cqa))
+        cobs = np.zeros((B, hooks.n_obs))
+        lib.run_batch(ptr(cq), ptr(cv), ptr(ca), ptr(cw), ptr(cc), ptr(cqa),
+                      ptr(np.ascontiguousarray(clk)), ptr(qo), ptr(vo),
+                      ptr(ca), ptr(wo), ptr(qao), ptr(cobs), ctypes.c_int(B))
+        np.testing.assert_allclose(cobs, rows(obs), rtol=0, atol=1e-9)
+        cq, cv, cw, cqa = qo, vo, wo, qao
+        for got, want in ((cq, q), (cv, v), (cw, w), (cqa, qa)):
+            np.testing.assert_allclose(got, rows(want), rtol=0, atol=1e-9)
+        clk = clk + float(m.opt.timestep)
+
+
 # sha256 (first 16 hex digits) of the float kernel source of each distinct
-# (model, hooks) pair the smoke built before ball joints and cones were
-# ported (ENVS keys of chip_smoke.py, and cheetah with Gaussian reset
-# noise): porting them changed no earlier model's kernel
+# (model, hooks) pair the smoke builds (ENVS keys of chip_smoke.py, and
+# cheetah with Gaussian reset noise): porting a later part of the kernel
+# (ball joints and cones, then sensors and the qacc carry) changed no
+# earlier model's kernel.  The three elliptic sources are pinned as of the
+# cone Hessian's one-rounding division of mub2 by D0.
 EARLIER_SOURCES = {
     "cheetah/run": "e40d1e0a0c579f25", "walker/walk": "9efbfd70f1491e7b",
     "cartpole/swingup": "be1ba6dc20524d50",
@@ -341,6 +418,15 @@ EARLIER_SOURCES = {
     "tendon-equality": "4102536f9dd836dc", "box-pairs": "190fd0cf46bb480b",
     "plane-shapes": "7bcfdd70bdf37488", "box-stack": "acee84fa680f70ea",
     "cheetah gauss": "a6038eb82f93e532",
+    "cable/swing": "3630b1bc3c4ee3e7",
+    "cheetah/run-elliptic": "6ca01b53bc57f2f9",
+    "ball-limit-spring": "cc982416e2865b9b",
+    "ball-free-actuators": "178e8c627c2576b3",
+    "weld-ball": "9330091a94e55467", "condim46": "6870e388745c5b0d",
+    "elliptic-condim4": "891fe049dceca13f",
+    "elliptic-condim6": "b0496f702c2c2ec0",
+    "walker/walk-tendon-sensors": "fd8a2e32c19c41bd",
+    "sensors-all": "b0099d692b878ee2",
 }
 
 

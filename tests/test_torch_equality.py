@@ -187,8 +187,11 @@ def test_fastrollout_eq_active_on_the_cpu():
 
 
 def test_bench_configs_copy_the_reference_bench():
-    """The XMLs, and cheetah-run-elliptic built as bench.py:426-433 builds
-    it: the suite's cheetah with elliptic cones, every field equal."""
+    """The XMLs, cheetah-run-elliptic built as bench.py:426-433 builds
+    it (the suite's cheetah with elliptic cones) and
+    walker-walk-tendon-sensors as bench.py:435-468 builds it (walker
+    with the knee coupler and the torso IMU, the sensors observed), every
+    field equal."""
     from oxide_control_tpu.model import ConeType as RefConeType
     from oxide_control_tpu.suite import cheetah as ref_cheetah
     from test_torch_model import _assert_models_equal
@@ -200,3 +203,10 @@ def test_bench_configs_copy_the_reference_bench():
     ref = ref.replace(opt=dataclasses.replace(ref.opt,
                                               cone=RefConeType.ELLIPTIC))
     _assert_models_equal(bench_configs.cheetah_run_elliptic()[0], ref)
+    ref_env = bench.load_config("walker", "walk-tendon-sensors", 8)
+    model, task = bench_configs.walker_walk_tendon_sensors()
+    _assert_models_equal(model, ref_env.model)
+    hooks = task.kernel_hooks(model)
+    ref_hooks = ref_env.task.kernel_hooks(ref_env.model)
+    assert hooks.needs_sensors and ref_hooks.needs_sensors
+    assert hooks.n_obs == ref_hooks.n_obs == 17 + model.nsensordata
