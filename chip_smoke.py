@@ -1,8 +1,10 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: ``python3 chip_smoke.py``.
 
 Drives the port's main path -- ``FastRollout`` through the hand-written
-CUDA rollout kernel on twelve rows of the reference bench: cheetah-run@4096
-and walker-walk@4096 (K = 200), cartpole-swingup@1024 (K = 200, RK4),
+CUDA rollout kernel on thirteen rows: cheetah-run@4096 and
+cheetah-run-push@4096 (``FastRollout(applied_forces=True)``, a per-env
+push on the torso drawn before each call), walker-walk@4096 (K = 200),
+cartpole-swingup@1024 (K = 200, RK4),
 arm-muscle-wrap@4096, fourbar-equality@4096 (connect and joint
 equalities, eq_active lanes), arms-self-collide@4096 (capsule and sphere
 pairs) and cable-swing@4096 (six ball joints, reset noise on every
@@ -31,6 +33,9 @@ Phases, each fatal on failure:
    build (the price of bit-exact parity);
 6. main path: 1 warm-up + 10 timed calls of each row (CUDA events), with
    the kernel's launch count set to 0 before and read after those calls;
+   then, outside the count, cheetah-run-push's push check: from one reset
+   state and one generator state, one call pushed and one not, and the
+   pushed envs must end displaced along their push;
 7. the kernels line (JSON) and the last line (JSON).
 
 Parity runs each main-path row at its own B and K; models without a
@@ -42,10 +47,13 @@ eq_active), weld@1024, tendon-equality@1024, box-pairs@1024,
 plane-box-cyl-ellipsoid@1024, box-stack@1024 (box-box SAT),
 ball-limit-spring@1024, ball-free-actuators@1024, weld-ball@1024,
 condim46@1024 (pyramidal torsional and rolling friction),
-elliptic-condim4@1024 and elliptic-condim6@1024, and sensors-all@1024
+elliptic-condim4@1024 and elliptic-condim6@1024, sensors-all@1024
 (a ball joint, every sensor type of the kernel family, observed and
-collected); and the two options off the main path (exploration noise,
-Gaussian reset noise) at K = 24.
+collected), fluid-forces@1024 (density, viscosity and wind),
+mocap-weld@1024 (per-env mocap poses and eq_active rows) and
+applied-forces@1024 (per-env qfrc and xfrc on every body); and the two
+options off the main path (exploration noise, Gaussian reset noise) at
+K = 24.
 
 Needs one CUDA card; exits non-zero without one.
 """
@@ -61,12 +69,12 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from oxide_control_torch import bench_configs, suite
+from oxide_control_torch import bench_configs, convert, suite
 from oxide_control_torch.api.environment import BatchedEnvironment
 from oxide_control_torch.mjcf.compile import load_model_from_xml
 from oxide_control_torch.model import JointType
 from oxide_control_torch.ops import megakernel as mk
-from oxide_control_torch.parallel.rollout import FastRollout
+from oxide_control_torch.parallel.rollout import FastRollout, mocap_rest_pose
 from oxide_control_torch.policy import MLPPolicy
 from oxide_control_torch.suite import walker
 from oxide_control_torch.suite.common import SensorObsWrapper, asset_path
@@ -401,6 +409,64 @@ SENSORS_ALL_XML = """
 </mujoco>
 """
 
+# the fluid, mocap and applied-force parity models, run with the bench
+# task (reset noise on every coordinate): the reference tests' models
+# (tests/test_scalar_graph.py:959-985, :1075-1099 and :1158-1180)
+FLUID_XML = """
+    <mujoco>
+      <option timestep="0.002" solver="Newton" iterations="8"
+              tolerance="0" density="1.2" viscosity="0.02" wind="0.5 -0.3 0.1"/>
+      <worldbody>
+        <geom name="floor" type="plane" size="5 5 .1"/>
+        <body pos="0 0 1">
+          <freejoint/>
+          <geom type="box" size="0.1 0.15 0.05" mass="0.4"/>
+        </body>
+        <body pos="0.5 0 0.6">
+          <joint type="hinge" axis="0 1 0" damping="0.01"/>
+          <geom type="capsule" fromto="0 0 0 0.3 0 0" size="0.03"
+                mass="0.3"/>
+        </body>
+      </worldbody>
+    </mujoco>
+    """
+MOCAP_WELD_XML = """
+    <mujoco>
+      <option timestep="0.002" solver="Newton" iterations="6" tolerance="0"/>
+      <worldbody>
+        <geom name="floor" type="plane" size="5 5 .1"/>
+        <body name="target" mocap="true" pos="0.3 0 0.4">
+          <geom type="box" size="0.1 0.1 0.02" contype="0" conaffinity="0"/>
+        </body>
+        <body name="box" pos="0 0 0.3">
+          <freejoint/>
+          <geom type="box" size="0.06 0.05 0.04" mass="0.5"/>
+        </body>
+      </worldbody>
+      <equality>
+        <weld body1="box" body2="target"/>
+        <connect body1="box" body2="target" anchor="0 0 0" active="false"/>
+      </equality>
+    </mujoco>
+    """
+APPLIED_XML = """
+    <mujoco>
+      <option timestep="0.002" solver="Newton" iterations="6" tolerance="0"/>
+      <worldbody>
+        <geom name="floor" type="plane" size="5 5 .1"/>
+        <body pos="0 0 0.3">
+          <freejoint/>
+          <geom type="box" size="0.06 0.05 0.04" mass="0.5"/>
+          <body pos="0.1 0 0">
+            <joint type="hinge" axis="0 1 0" damping="0.01"/>
+            <geom type="capsule" fromto="0 0 0 0.15 0 0" size="0.02"
+                  mass="0.1"/>
+          </body>
+        </body>
+      </worldbody>
+    </mujoco>
+    """
+
 
 class QuatSafeBenchTask(bench_configs.BenchTask):
     """The bench task without reset noise on quaternion coordinates (a
@@ -490,22 +556,27 @@ ENVS = {
     "walker/walk-tendon-sensors": lambda: bench_configs.load_config(
         "walker", "walk-tendon-sensors", 4096),
     "sensors-all": lambda: sensors_env(SENSORS_ALL_XML, 1024),
+    "fluid-forces": lambda: ball_env(FLUID_XML, 1024),
+    "mocap-weld": lambda: ball_env(MOCAP_WELD_XML, 1024),
+    "applied-forces": lambda: ball_env(APPLIED_XML, 1024),
 }
-# the main path's rows: (name, task, K, in-kernel policy + collection)
+# the main path's rows: (name, task, K, in-kernel policy + collection,
+# applied forces: a per-env push drawn before each call)
 ROWS = (
-    ("cheetah-run@4096", "cheetah/run", 200, False),
-    ("run-policy-obs@4096", "cheetah/run", 200, True),
-    ("walker-walk@4096", "walker/walk", 200, False),
-    ("cartpole-swingup@1024", "cartpole/swingup", 200, False),
-    ("arm-muscle-wrap@4096", "arm/muscle-wrap", 200, False),
-    ("fourbar-equality@4096", "fourbar/equality", 200, False),
-    ("arms-self-collide@4096", "arms/self-collide", 200, False),
-    ("cable-swing@4096", "cable/swing", 200, False),
-    ("cheetah-run-elliptic@4096", "cheetah/run-elliptic", 50, False),
+    ("cheetah-run@4096", "cheetah/run", 200, False, False),
+    ("cheetah-run-push@4096", "cheetah/run", 200, False, True),
+    ("run-policy-obs@4096", "cheetah/run", 200, True, False),
+    ("walker-walk@4096", "walker/walk", 200, False, False),
+    ("cartpole-swingup@1024", "cartpole/swingup", 200, False, False),
+    ("arm-muscle-wrap@4096", "arm/muscle-wrap", 200, False, False),
+    ("fourbar-equality@4096", "fourbar/equality", 200, False, False),
+    ("arms-self-collide@4096", "arms/self-collide", 200, False, False),
+    ("cable-swing@4096", "cable/swing", 200, False, False),
+    ("cheetah-run-elliptic@4096", "cheetah/run-elliptic", 50, False, False),
     ("walker-walk-tendon-sensors@4096", "walker/walk-tendon-sensors", 50,
-     True),
-    ("humanoid-run@8192", "humanoid/run", 100, False),
-    ("humanoid-run-policy-obs@8192", "humanoid/run", 100, True),
+     True, False),
+    ("humanoid-run@8192", "humanoid/run", 100, False, False),
+    ("humanoid-run-policy-obs@8192", "humanoid/run", 100, True, False),
 )
 # parity modes beside the rows (each row is a mode at its own B and K):
 # (label, task, K, variant)
@@ -528,6 +599,11 @@ EXTRA_MODES = (
     ("elliptic-condim6@1024", "elliptic-condim6", 200, "ctrl"),
     # ctrl input, the observation (the sensor rows) collected
     ("sensors-all@1024", "sensors-all", 200, "collect"),
+    ("fluid-forces@1024", "fluid-forces", 200, "ctrl"),
+    # per-env mocap poses and eq_active rows
+    ("mocap-weld@1024", "mocap-weld", 200, "mocap"),
+    # per-env qfrc and xfrc on every body
+    ("applied-forces@1024", "applied-forces", 200, "applied"),
     ("cheetah explore", "cheetah/run", 24, "explore"),
     ("cheetah gaussian_reset", "cheetah/run", 24, "gauss"),
 )
@@ -608,14 +684,35 @@ def philox_phase():
     log("philox: known-answer vectors match on the card")
 
 
-def parity_inputs(benv, fn, seed=7, toggle=False):
-    """A reset batch whose step counters are spread over the episode, so
-    that some envs cross the time limit inside the window, with the
-    call's ctrl or policy weights and, for a model with equality
-    constraints, its eq_active rows (eq_active0; with ``toggle`` the
-    first equality off on every other env).  A carried qacc starts
-    uniform in [-1, 1), so the first step's accelerometer reads it."""
+def draw_push(model, b, gen):
+    """cheetah-run-push's per-env push, held for one call: on the torso a
+    force along x and z, each uniform in [-30, 30] N, and a torque about
+    y uniform in [-5, 5] N m; qfrc_applied uniform in [-1, 1] on every
+    dof.  Returns (qfrc_applied (B, nv), xfrc_applied (B, nbody, 6))."""
+    u = lambda lo, hi, *shape: torch.empty(shape, device="cuda").uniform_(
+        lo, hi, generator=gen)
+    torso = model.name2id("body", "torso")
+    xfrc = torch.zeros((b, model.nbody, 6), device="cuda")
+    xfrc[:, torso, 0] = u(-30.0, 30.0, b)
+    xfrc[:, torso, 2] = u(-30.0, 30.0, b)
+    xfrc[:, torso, 4] = u(-5.0, 5.0, b)
+    return u(-1.0, 1.0, b, model.nv), xfrc
+
+
+def parity_inputs(benv, fn, variant, seed=7):
+    """``(args, kw)`` of one call: a reset batch whose step counters are
+    spread over the episode, so that some envs cross the time limit
+    inside the window, with the call's ctrl or policy weights and, for a
+    model with equality constraints, its eq_active rows (eq_active0; with
+    ``toggle`` the first equality off on every other env; with ``mocap``
+    cycling through (1,0), (1,1), (0,0), (0,1)).  ``mocap`` also poses
+    the mocap bodies per env (within 0.1 of rest, unit quaternions),
+    ``applied`` draws per-env qfrc in [-0.5, 0.5] and xfrc (force in
+    [-1, 1] N, torque in [-0.1, 0.1] N m) on every body but the world, ``push`` draws cheetah-run-push's push.  A
+    carried qacc starts uniform in [-1, 1), so the first step's
+    accelerometer reads it."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
+    model = benv.model
     b = fn.batch
     data = benv.reset(gen)
     n0 = torch.randint(0, fn.spec.limit_n, (b,), generator=gen,
@@ -639,12 +736,41 @@ def parity_inputs(benv, fn, seed=7, toggle=False):
     eq_active = None
     if fn.spec.neq:
         eq_active = torch.tensor(
-            [float(x) for x in benv.model.eq_active0],
+            [float(x) for x in model.eq_active0],
             device="cuda")[:, None].repeat(1, b)
-        if toggle:
+        if variant == "toggle":
             eq_active[0, 0::2] = 0.0
-    return state + (ctrl, torch.tensor([20261016], dtype=torch.int32,
+        if variant == "mocap":
+            cycle = torch.tensor([[1.0, 0.0], [1.0, 1.0], [0.0, 0.0],
+                                  [0.0, 1.0]], device="cuda")
+            eq_active = cycle.repeat(b // 4, 1).T.contiguous()
+    kw = {}
+    if fn.spec.nmocap:
+        nm = fn.spec.nmocap
+        rest = torch.as_tensor(mocap_rest_pose(model)[0], device="cuda",
+                               dtype=torch.float32)
+        pos = rest + torch.empty((b, nm, 3), device="cuda").uniform_(
+            -0.1, 0.1, generator=gen)
+        quat = torch.empty((b, nm, 4), device="cuda").uniform_(
+            -1.0, 1.0, generator=gen)
+        quat = quat / quat.norm(dim=2, keepdim=True)
+        kw["mocap"] = convert.mocap_to_kernel(pos, quat)
+    if fn.spec.applied:
+        if variant == "push":
+            qfrc, xfrc = draw_push(model, b, gen)
+        else:
+            qfrc = torch.empty((b, model.nv), device="cuda").uniform_(
+                -0.5, 0.5, generator=gen)
+            xfrc = torch.empty((b, model.nbody, 6), device="cuda").uniform_(
+                -1.0, 1.0, generator=gen)
+            # torques within 0.1 N m: at 1 N m a third of the envs spin
+            # up and diverge within the 200 steps
+            xfrc[:, :, 3:] *= 0.1
+            xfrc[:, 0] = 0.0
+        kw.update(qfrc=qfrc.T.contiguous(), xfrc=convert.xfrc_to_kernel(xfrc))
+    args = state + (ctrl, torch.tensor([20261016], dtype=torch.int32,
                                        device="cuda"), params, eq_active)
+    return args, kw
 
 
 def resets_of(fn, args, out):
@@ -654,16 +780,16 @@ def resets_of(fn, args, out):
                + out[fn.n_state + 1].sum())
 
 
-def time_kernel(fn, args):
+def time_kernel(fn, args, kw):
     """ms per call of the kernel alone, 1 warm-up + N_TIMED calls between
     CUDA events; returns (ms, the warm-up's outputs)."""
-    out = fn(*args)
+    out = fn(*args, **kw)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(N_TIMED):
-        fn(*args)
+        fn(*args, **kw)
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / N_TIMED, out
@@ -687,14 +813,14 @@ def plain_phase(modes):
     wall time of each call between synchronizes (the first call of each
     mode, so its CUDA-graph capture of the step is included)."""
     res = {}
-    for label, (benv, fn) in modes.items():
-        args = parity_inputs(benv, fn, toggle="eq-toggle" in label)
+    for label, (benv, fn, variant) in modes.items():
+        args, kw = parity_inputs(benv, fn, variant)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        po = fn.plain(*args)
+        po = fn.plain(*args, **kw)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
-        res[label] = dict(args=args, out=po, plain_ms=plain_ms)
+        res[label] = dict(args=args, kw=kw, out=po, plain_ms=plain_ms)
         log(f"plain {label} (B={fn.batch}, K={fn.steps}): {plain_ms:.1f} "
             "ms with the graph capture")
     return res
@@ -703,9 +829,9 @@ def plain_phase(modes):
 def parity_phase(modes, plain):
     """Kernel vs plain version on the card, one mode at a time."""
     res = {}
-    for label, (benv, fn) in modes.items():
+    for label, (benv, fn, _) in modes.items():
         args, po = plain[label]["args"], plain[label]["out"]
-        ko = fn(*args)
+        ko = fn(*args, **plain[label]["kw"])
         torch.cuda.synchronize()
         me = max_errors(fn, ko, po)
         dones = fn.n_state + 4
@@ -746,18 +872,58 @@ def timing_phase(rolls, plain, fma):
     res = {}
     for row, roll in rolls.items():
         kern, args = roll.kernel, plain[row]["args"]
-        ms, out = time_kernel(kern, args)
+        ms, out = time_kernel(kern, args, plain[row]["kw"])
         res[row] = dict(ms=ms, resets=resets_of(kern, args, out))
         log(f"kernel {row}: {ms:.4f} ms per call ({res[row]['resets']} "
             "resets)")
         if row == "cheetah-run@4096":
             fo = fma(*args)
-            fma_ms, _ = time_kernel(fma, args)
+            fma_ms, _ = time_kernel(fma, args, {})
             log(f"  FMA-contracted build (not on the path): {fma_ms:.4f} ms "
                 f"per call against {ms:.4f}; drift from the plain version: "
                 + ", ".join(f"{k} {v:.3e}" for k, v in max_errors(
                     fma, fo, plain[row]["out"]).items()))
     return res
+
+
+def run_row(roll, state, gen):
+    """One call of a row; a row with applied forces draws its push from
+    the row's generator first."""
+    if not roll.applied_forces:
+        return roll.run(state, gen)
+    qfrc, xfrc = draw_push(roll.benv.model, roll.benv.num_envs, gen)
+    return roll.run(state, gen, qfrc_applied=qfrc, xfrc_applied=xfrc)
+
+
+def push_check(roll):
+    """From one reset state and one generator state, a call pushed and
+    one not (ctrl and seed drawn alike): over the envs, the mean of
+    sign(Fx) * (rootx pushed - rootx unpushed) must be positive (the
+    reference's tests/test_megakernel.py:822-823 check).  No env resets
+    in the call: cheetah's time limit is 1000 steps."""
+    model, b = roll.benv.model, roll.benv.num_envs
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    state = roll.init(gen)
+    qfrc, xfrc = draw_push(model, b, gen)
+    saved = gen.get_state()
+    pushed, tp = roll.run(state, gen, qfrc_applied=qfrc, xfrc_applied=xfrc)
+    gen.set_state(saved)
+    free, tf = roll.run(state, gen)
+    torch.cuda.synchronize()
+    k = roll.steps_per_call
+    n_end = torch.round(torch.cat([pushed[4], free[4]]) / model.opt.timestep)
+    if not bool((n_end == k).all()) or float(tp.diverged.sum()
+                                             + tf.diverged.sum()):
+        raise AssertionError("push check: an env reset inside the call")
+    fx = xfrc[:, model.name2id("body", "torso"), 0]
+    rootx = model.jnt_qposadr[model.name2id("joint", "rootx")]
+    effect = float((torch.sign(fx) * (pushed[0][rootx]
+                                      - free[0][rootx])).mean())
+    log(f"push check: mean sign(Fx) * (rootx pushed - rootx unpushed) = "
+        f"{effect:.6f} m over {b} envs, {k} steps")
+    if not effect > 0.0:
+        raise AssertionError("push check: the push moved no env along it")
+    return effect
 
 
 def main_path_phase(rolls):
@@ -768,7 +934,7 @@ def main_path_phase(rolls):
         gen = torch.Generator(device="cuda").manual_seed(1)
         state = roll.init(gen)
         roll.kernel.launches = 0
-        state, traj = roll.run(state, gen)  # warm-up
+        state, traj = run_row(roll, state, gen)  # warm-up
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -776,7 +942,7 @@ def main_path_phase(rolls):
         rew = torch.zeros(b, device="cuda")
         ndiv = torch.zeros(b, device="cuda")
         for _ in range(N_TIMED):
-            state, traj = roll.run(state, gen)
+            state, traj = run_row(roll, state, gen)
             rew += traj.reward_sum
             ndiv += traj.diverged
         end.record()
@@ -804,6 +970,8 @@ def main_path_phase(rolls):
                 raise AssertionError(f"{name}: non-finite observations")
         rate = b * k / (ms * 1e-3)
         rows[name] = dict(launches=launches, rate=rate)
+        if roll.applied_forces:
+            rows[name]["push_effect_m"] = push_check(roll)
         log(f"main path {name}: {rate:.6e} env-steps/s ({ms:.4f} ms per "
             f"call of {b}x{k}), {launches} launches, "
             f"{int(ndiv.sum())} divergences, mean reward "
@@ -828,7 +996,8 @@ def bound(fn, built, resets):
     # nq + nv Box-Muller normals
     ops += resets * (built.reset_ops + 25 * s.n_draws + 8 * (s.nq + s.nv))
     sfu += resets * 3 * (s.nq + s.nv)
-    nbytes = 4 * b * (2 * (s.nq + 2 * s.nv + fn.na_rows + 1) + 2 + s.neq
+    nbytes = 4 * b * (2 * (s.nq + 2 * s.nv + fn.na_rows + 1) + 2
+                      + sum(mk.input_rows(s).values())
                       + (2 * s.nv if s.carry_qacc else 0))
     if fn.policy is None:
         nbytes += 4 * k * s.nu * b
@@ -855,15 +1024,17 @@ def main():
             hidden=(64, 64), generator=gen)
     rolls = {row: FastRollout(benvs[key], k,
                               policy=policies[key] if pol else None,
-                              collect=pol)
-             for row, key, k, pol in ROWS}
+                              collect=pol, applied_forces=push)
+             for row, key, k, pol, push in ROWS}
     cheetah = benvs["cheetah/run"]
     hooks = cheetah.task.kernel_hooks(cheetah.model)
     explorer = MLPPolicy(hooks.n_obs, cheetah.model.nu, hidden=(64, 64),
                          explore_sigma=0.3, generator=gen)
     gauss = dataclasses.replace(hooks, reset_qpos_sigma=[0.0] * 3 + [0.05] * 6,
                                 reset_qvel_sigma=0.1)
-    modes = {row: (roll.benv, roll.kernel) for row, roll in rolls.items()}
+    modes = {row: (roll.benv, roll.kernel,
+                   "push" if roll.applied_forces else "row")
+             for row, roll in rolls.items()}
     for label, key, k, variant in EXTRA_MODES:
         benv = benvs[key]
         modes[label] = (benv, mk.build_rollout(
@@ -871,12 +1042,13 @@ def main():
             gauss if variant == "gauss"
             else benv.task.kernel_hooks(benv.model),
             emit_obs=variant in ("explore", "gauss", "collect"),
-            policy=explorer if variant == "explore" else None))
+            policy=explorer if variant == "explore" else None,
+            applied_forces=variant == "applied"), variant)
     fma = mk.build_rollout(cheetah.model, 4096, 200, hooks, fmad=True)
 
     t_build = time.perf_counter()
     pool, futures = start_builds(
-        {**{label: fn for label, (_, fn) in modes.items()}, "fmad": fma})
+        {**{label: fn for label, (_, fn, _) in modes.items()}, "fmad": fma})
     philox_phase()
     t = time.perf_counter()
     plain = plain_phase(modes)
@@ -906,6 +1078,7 @@ def main():
             spill_loads=b.spill_loads, build_s=b.seconds,
             emitted_lines=b.emitted_lines,
             step_lane_ops=b.step_ops + b.env_ops, work=work,
+            **{k: v for k, v in rows[row].items() if k == "push_effect_m"},
         ))
         log(f"kernel {row}: {timed[row]['ms']:.4f} ms per call, bound "
             f"{b_ms:.4f} ms ({by}), plain version "

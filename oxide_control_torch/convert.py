@@ -9,6 +9,11 @@
   ways (qacc for a task that observes an accelerometer-family sensor).
 * ``eq_active_to_kernel`` / ``eq_active_from_kernel``: ``Data.eq_active``
   rows ``(B, neq)`` <-> the kernel's coordinate-major ``(neq, B)``.
+* ``mocap_to_kernel``: ``Data.mocap_pos (B, nmocap, 3)`` and
+  ``mocap_quat (B, nmocap, 4)`` -> the kernel's ``(7*nmocap, B)``, (pos3,
+  quat4) per mocap body.
+* ``xfrc_to_kernel``: ``Data.xfrc_applied (B, nbody, 6)`` -> the kernel's
+  ``(6*nbody, B)``; ``Data.qfrc_applied (B, nv)`` goes as ``.T``.
 """
 
 from __future__ import annotations
@@ -55,3 +60,19 @@ def eq_active_to_kernel(eq_active, dtype=torch.float32, device=None):
 def eq_active_from_kernel(eq_active):
     """(neq, B) kernel rows -> (B, neq) bool, Data.eq_active's form."""
     return eq_active.T != 0
+
+
+def mocap_to_kernel(mocap_pos, mocap_quat, dtype=torch.float32,
+                    device=None):
+    """(B, nmocap, 3) positions and (B, nmocap, 4) quaternions ->
+    contiguous (7*nmocap, B) of ``dtype``."""
+    pos = torch.as_tensor(mocap_pos, device=device).to(dtype)
+    quat = torch.as_tensor(mocap_quat, device=device).to(dtype)
+    b = pos.shape[0]
+    return torch.cat([pos, quat], dim=2).reshape(b, -1).T.contiguous()
+
+
+def xfrc_to_kernel(xfrc_applied, dtype=torch.float32, device=None):
+    """(B, nbody, 6) force-torque rows -> contiguous (6*nbody, B)."""
+    t = torch.as_tensor(xfrc_applied, device=device).to(dtype)
+    return t.reshape(t.shape[0], -1).T.contiguous()

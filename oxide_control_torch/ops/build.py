@@ -131,7 +131,8 @@ def build_rollout_library(src, fmad: bool = False) -> Built:
     lib = ctypes.CDLL(str(so))
     fn = lib.oxc_rollout_launch
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = ([vp] * 8 + [vp, ci, vp, ci, ctypes.POINTER(ci), cf]
+    fn.argtypes = ([vp] * 8 + [vp, ci] + [vp] * 4
+                   + [ci, ctypes.POINTER(ci), cf]
                    + [vp] * 8 + [vp] * 4 + [ci, ci, vp])
     fn.restype = ci
     es = lib.oxc_error_string

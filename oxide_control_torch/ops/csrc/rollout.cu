@@ -17,7 +17,11 @@
 // inside oxc_observe at the pre-step state; the clock reads n * h, and the
 // accelerometer family (OXC_CARRY_QACC) reads the previous step's stage-1
 // qacc, which the thread carries in registers beside q and v, zeroes on
-// reset and stores at the end.
+// reset and stores at the end.  The inputs that are constant over a call
+// -- mocap poses (OXC_NMOCAP) and applied forces (OXC_APPLIED) -- stay in
+// global memory: the step gets a pointer into the env's column and reads
+// each value where it is used (element i at i * B), since the cheetah
+// class already fills the 255 registers a thread may have.
 //
 // What bounds it: compute.  One env-step is ~1e4 (cartpole, four RK4
 // passes) to ~4e5 (humanoid) scalar f32 lane-ops (the emitter counts them
@@ -66,6 +70,41 @@
 #else
 #define OXC_QA_OUT
 #endif
+// call inputs read from the env's column of global memory (the header
+// defines OXC_NMOCAP for a model with mocap bodies, OXC_APPLIED for a
+// rollout built with applied forces, and OXC_OBS_MOCAP/OXC_REW_MOCAP for
+// hooks that read the mocap poses through the FK or the sensors)
+#ifndef OXC_NMOCAP
+#define OXC_NMOCAP 0
+#endif
+#ifndef OXC_APPLIED
+#define OXC_APPLIED 0
+#endif
+#if OXC_NMOCAP > 0
+#define OXC_MC_ARG mcp,
+#else
+#define OXC_MC_ARG
+#endif
+#if OXC_APPLIED
+#define OXC_FRC_ARG qfp, xfp,
+#else
+#define OXC_FRC_ARG
+#endif
+#if OXC_NMOCAP > 0 || OXC_APPLIED
+#define OXC_LD_ARG B,
+#else
+#define OXC_LD_ARG
+#endif
+#ifdef OXC_OBS_MOCAP
+#define OXC_OBS_MC_ARG mcp, B,
+#else
+#define OXC_OBS_MC_ARG
+#endif
+#ifdef OXC_REW_MOCAP
+#define OXC_REW_MC_ARG , mcp, B
+#else
+#define OXC_REW_MC_ARG
+#endif
 
 struct OxcMlp {
   int n_layers;
@@ -82,7 +121,10 @@ oxc_rollout_kernel(const float* __restrict__ qpos,
                    const float* __restrict__ ctrl,
                    const int* __restrict__ seed_ptr,
                    const float* __restrict__ params, int n_params,
+                   const float* __restrict__ mocap,
                    const float* __restrict__ eq_active,
+                   const float* __restrict__ qfrc,
+                   const float* __restrict__ xfrc,
                    OxcMlp mlp, float explore_sigma,
                    float* __restrict__ qpos_o, float* __restrict__ qvel_o,
                    float* __restrict__ act_o, float* __restrict__ ws_o,
@@ -120,6 +162,13 @@ oxc_rollout_kernel(const float* __restrict__ qpos,
   for (int e = 0; e < OXC_NEQ; ++e)
     eqa[e] = eq_active[(size_t)e * B + env] != 0.0f;
 #endif
+#if OXC_NMOCAP > 0
+  const float* mcp = mocap + env;  // the env's (7*nmocap, B) column
+#endif
+#if OXC_APPLIED
+  const float* qfp = qfrc + env;   // (nv, B)
+  const float* xfp = xfrc + env;   // (6*nbody, B)
+#endif
   // exact step counter (time is always a multiple of h here)
   int n = (int)rintf(time_in[env] * OXC_INV_H);
   float rew = 0.0f, ndiv = 0.0f;
@@ -131,12 +180,12 @@ oxc_rollout_kernel(const float* __restrict__ qpos,
 #if OXC_NSENSORDATA > 0
       const float clk = (float)n * OXC_H;
 #if OXC_CARRY_QACC
-      oxc_observe(q, v, qa, &clk, obs);
+      oxc_observe(q, v, qa, &clk, OXC_OBS_MC_ARG obs);
 #else
-      oxc_observe(q, v, nullptr, &clk, obs);
+      oxc_observe(q, v, nullptr, &clk, OXC_OBS_MC_ARG obs);
 #endif
 #else
-      oxc_observe(q, v, obs);
+      oxc_observe(q, v, OXC_OBS_MC_ARG obs);
 #endif
       if (collect)
         for (int i = 0; i < OXC_NOBS; ++i)
@@ -163,7 +212,8 @@ oxc_rollout_kernel(const float* __restrict__ qpos,
 #if OXC_CARRY_QACC
     float qan[OXC_NV];
 #endif
-    oxc_step(q, v, a, w, c, OXC_EQ_ARG qn, vn, an, wn OXC_QA_OUT);
+    oxc_step(q, v, a, w, c, OXC_EQ_ARG OXC_MC_ARG OXC_FRC_ARG OXC_LD_ARG qn,
+             vn, an, wn OXC_QA_OUT);
     n += 1;
 
     // divergence (non-finite or |x| > 1e10, on q and v only) + time
@@ -176,7 +226,7 @@ oxc_rollout_kernel(const float* __restrict__ qpos,
       bad = bad || !oxc_isfinite(vn[i]) || fabsf(vn[i]) > 1e10f;
     const bool done = bad || n >= OXC_LIMIT_N;
     ndiv += bad ? 1.0f : 0.0f;
-    const float r = bad ? 0.0f : oxc_reward(qn, vn, c);
+    const float r = bad ? 0.0f : oxc_reward(qn, vn, c OXC_REW_MC_ARG);
     rew += r;
     if (collect) {
       rewards_o[(size_t)k * B + env] = r;
@@ -223,8 +273,9 @@ extern "C" int oxc_rollout_launch(
     const float* qpos, const float* qvel, const float* act, const float* ws,
     const float* time_in, const float* qacc_in, const float* ctrl,
     const int* seed,
-    const float* params, int n_params, const float* eq_active, int n_layers,
-    const int* dims,
+    const float* params, int n_params, const float* mocap,
+    const float* eq_active, const float* qfrc, const float* xfrc,
+    int n_layers, const int* dims,
     float explore_sigma, float* qpos_o, float* qvel_o, float* act_o,
     float* ws_o, float* time_o, float* qacc_o, float* reward_sum,
     float* diverged,
@@ -239,6 +290,9 @@ extern "C" int oxc_rollout_launch(
   if (params && (dims[0] != OXC_NOBS || dims[n_layers] != OXC_NU))
     return (int)cudaErrorInvalidValue;
   if (OXC_NEQ > 0 && eq_active == nullptr) return (int)cudaErrorInvalidValue;
+  if (OXC_NMOCAP > 0 && mocap == nullptr) return (int)cudaErrorInvalidValue;
+  if (OXC_APPLIED && (qfrc == nullptr || xfrc == nullptr))
+    return (int)cudaErrorInvalidValue;
   if (OXC_CARRY_QACC && (qacc_in == nullptr || qacc_o == nullptr))
     return (int)cudaErrorInvalidValue;
   const int threads = OXC_BLOCK;
@@ -252,8 +306,9 @@ extern "C" int oxc_rollout_launch(
   }
   oxc_rollout_kernel<<<blocks, threads, shmem, (cudaStream_t)stream>>>(
       qpos, qvel, act, ws, time_in, qacc_in, ctrl, seed, params, n_params,
-      eq_active, mlp, explore_sigma, qpos_o, qvel_o, act_o, ws_o, time_o,
-      qacc_o, reward_sum, diverged, obs_o, rewards_o, dones_o, ctrls_o, B, K);
+      mocap, eq_active, qfrc, xfrc, mlp, explore_sigma, qpos_o, qvel_o,
+      act_o, ws_o, time_o, qacc_o, reward_sum, diverged, obs_o, rewards_o,
+      dones_o, ctrls_o, B, K);
   return (int)cudaGetLastError();
 }
 

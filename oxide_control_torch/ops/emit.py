@@ -326,9 +326,15 @@ class Emitter:
         return vars_
 
     # ----- function assembly -----
-    def load(self, array: str, n: int, kind: str = "f") -> list:
+    def load(self, array: str, n: int, kind: str = "f",
+             stride: str | None = None) -> list:
         """Symbols naming ``array[0..n-1]`` (an input the function only
-        reads), float or (``kind="b"``) bool."""
+        reads), float or (``kind="b"``) bool; with ``stride`` (the name of
+        an int parameter) element i is ``array[i * stride]``, a column of
+        a coordinate-major (rows, B) input read where it is used."""
+        if stride is not None:
+            return [Sym(self, f"{array}[{i} * {stride}]", kind)
+                    for i in range(n)]
         return [Sym(self, f"{array}[{i}]", kind) for i in range(n)]
 
     def store(self, array: str, values) -> None:

@@ -121,6 +121,9 @@ class EnvSpec:
     neq: int = 0
     nsensordata: int = 0   # sensor rows observe reads (0: no sensors)
     carry_qacc: bool = False  # an accelerometer-family sensor reads qacc
+    nmocap: int = 0        # mocap bodies, posed by the (7*nmocap, B) input
+    applied: bool = False  # takes the qfrc (nv, B), xfrc (6*nbody, B) inputs
+    nbody: int = 0         # bodies: xfrc has 6 rows per body
 
     @property
     def n_draws(self) -> int:
@@ -129,7 +132,8 @@ class EnvSpec:
         return self.nq + 2 * (self.nq + self.nv)
 
 
-def env_spec(model: Model, hooks: EnvHooks) -> EnvSpec:
+def env_spec(model: Model, hooks: EnvHooks,
+             applied_forces: bool = False) -> EnvSpec:
     nq = model.nq
     h = float(model.opt.timestep)
     qpos0 = [float(x) for x in np.asarray(model.qpos0)]
@@ -155,33 +159,50 @@ def env_spec(model: Model, hooks: EnvHooks) -> EnvSpec:
                    n_obs=hooks.n_obs, h=h, limit_n=limit_n,
                    qpos0=tuple(qpos0), uamp=tuple(uamp), qsig=tuple(qsig),
                    vsig=float(hooks.reset_qvel_sigma), neq=model.neq,
-                   nsensordata=nsens, carry_qacc=carry_qacc)
+                   nsensordata=nsens, carry_qacc=carry_qacc,
+                   nmocap=model.nmocap, applied=bool(applied_forces),
+                   nbody=model.nbody)
+
+
+def _observe_reads_fk(hooks: EnvHooks) -> bool:
+    """Whether ``observe`` receives ``fk``: with ``needs_fk``, if its
+    signature takes it."""
+    if not hooks.needs_fk or hooks.observe is None:
+        return False
+    params = inspect.signature(hooks.observe).parameters.values()
+    return any(p.kind == p.VAR_KEYWORD or p.name == "fk" for p in params)
+
+
+def _hooks_read_mocap(model: Model, hooks: EnvHooks):
+    """(observe, reward): whether each hook reads the mocap poses, i.e.
+    the model has mocap bodies and the hook reads the FK or sensors."""
+    if not model.nmocap:
+        return False, False
+    return (_observe_reads_fk(hooks) or hooks.needs_sensors,
+            hooks.needs_fk)
 
 
 def bind_hooks(model: Model, hooks: EnvHooks, bk):
-    """``(observe(q, v, qacc=None, time=None), reward(q, v, c))``: the
-    task's hooks on backend ``bk``, with ``fk`` and ``sensordata`` passed
-    as :class:`EnvHooks` says (the reference's rule,
-    ``oxide_control_tpu/ops/megakernel.py:160-177`` and ``:442-452``;
-    ``qacc`` and ``time`` feed the sensors).  The plain version and the
-    emitted kernel both call the hooks through this, so they evaluate the
-    same expressions in the same order."""
+    """``(observe(q, v, qacc=None, time=None, mocap=None),
+    reward(q, v, c, mocap=None))``: the task's hooks on backend ``bk``,
+    with ``fk`` and ``sensordata`` passed as :class:`EnvHooks` says (the
+    reference's rule, ``oxide_control_tpu/ops/megakernel.py:160-177`` and
+    ``:442-452``, ``:473``; ``qacc`` and ``time`` feed the sensors, and
+    ``mocap`` poses the mocap bodies of the FK and the sensors).  The
+    plain version and the emitted kernel both call the hooks through
+    this, so they evaluate the same expressions in the same order."""
     fk = sg.build_fk(model, bk) if hooks.needs_fk else None
     sens = sg.build_sensors(model, bk) if hooks.needs_sensors else None
-    obs_fk = False
-    if fk is not None and hooks.observe is not None:
-        params = inspect.signature(hooks.observe).parameters.values()
-        obs_fk = any(p.kind == p.VAR_KEYWORD or p.name == "fk"
-                     for p in params)
+    obs_fk = _observe_reads_fk(hooks)
 
-    def observe(q, v, qacc=None, time=None):
-        kw = {"fk": fk(q)} if obs_fk else {}
+    def observe(q, v, qacc=None, time=None, mocap=None):
+        kw = {"fk": fk(q, mocap=mocap)} if obs_fk else {}
         if sens is not None:
-            kw["sensordata"] = sens(q, v, qacc=qacc, time=time)
+            kw["sensordata"] = sens(q, v, qacc=qacc, time=time, mocap=mocap)
         return list(hooks.observe(bk, q, v, **kw))
 
-    def reward(q, v, c):
-        kw = {"fk": fk(q)} if fk is not None else {}
+    def reward(q, v, c, mocap=None):
+        kw = {"fk": fk(q, mocap=mocap)} if fk is not None else {}
         return hooks.reward(bk, q, v, c, **kw)
 
     return observe, reward
@@ -288,19 +309,28 @@ class KernelSource:
     env_ops: int         # observe + reward lane-ops per env-step
 
 
-def kernel_source(model: Model, hooks: EnvHooks,
-                  ctype: str = "float") -> KernelSource:
+def kernel_source(model: Model, hooks: EnvHooks, ctype: str = "float",
+                  applied_forces: bool = False) -> KernelSource:
     """The per-model C header the CUDA shell includes: sizes, env-layer
     constants and the emitted ``oxc_step`` / ``oxc_observe`` /
-    ``oxc_reward`` / ``oxc_reset`` functions."""
+    ``oxc_reward`` / ``oxc_reset`` functions.
+
+    The inputs that are constant over a call -- the mocap poses
+    (``mc``, 7 * nmocap rows) and, with ``applied_forces``, the applied
+    forces (``qf``, nv rows; ``xf``, 6 * nbody rows) -- are pointers into
+    the env's column of the (rows, B) input, element i at ``i * ld``, read
+    where the step uses them; a function takes them only when the model
+    (or the flag) has them, so every other source is unchanged."""
     from .emit import PRELUDE, Emitter
 
     if hooks.observe is None:
         raise ValueError("the rollout kernel needs EnvHooks.observe")
-    spec = env_spec(model, hooks)
+    spec = env_spec(model, hooks, applied_forces)
     nq, nv, nu, na, n_obs = spec.nq, spec.nv, spec.nu, spec.na, spec.n_obs
     T = ctype
     parts = []
+    mc_arg = f"const {T}* mc, int ld, "
+    obs_mc, rew_mc = _hooks_read_mocap(model, hooks)
 
     em = Emitter(ctype)
     step = sg.build_step(model, em, want_qacc=spec.carry_qacc)
@@ -308,7 +338,17 @@ def kernel_source(model: Model, hooks: EnvHooks,
     w, c = em.load("w", nv), em.load("c", nu)
     # a model with equality constraints takes one bool lane per equality
     eq = em.load("eq", spec.neq, "b") if spec.neq else None
-    outs = step(q, v, a, w, c, eq)
+    ext, ext_arg = {}, ""
+    if spec.nmocap:
+        ext["mocap"] = em.load("mc", 7 * spec.nmocap, stride="ld")
+        ext_arg += f"const {T}* mc, "
+    if spec.applied:
+        ext["qfrc_ext"] = em.load("qf", nv, stride="ld")
+        ext["xfrc_ext"] = em.load("xf", 6 * spec.nbody, stride="ld")
+        ext_arg += f"const {T}* qf, const {T}* xf, "
+    if ext:
+        ext_arg += "int ld, "
+    outs = step(q, v, a, w, c, eq, **ext)
     for name, xs in zip(("q_out", "v_out", "a_out", "w_out", "qa_out"),
                         outs):
         em.store(name, xs)
@@ -317,33 +357,37 @@ def kernel_source(model: Model, hooks: EnvHooks,
     qa_arg = f", {T}* qa_out" if spec.carry_qacc else ""
     parts.append(em.function(
         f"void oxc_step(const {T}* q, const {T}* v, const {T}* a, "
-        f"const {T}* w, const {T}* c, {eq_arg}{T}* q_out, {T}* v_out, "
-        f"{T}* a_out, {T}* w_out{qa_arg})"))
+        f"const {T}* w, const {T}* c, {eq_arg}{ext_arg}{T}* q_out, "
+        f"{T}* v_out, {T}* a_out, {T}* w_out{qa_arg})"))
     step_ops, step_sfu = em.ops, em.sfu_ops
 
     eo = Emitter(ctype)
     q, v = eo.load("q", nq), eo.load("v", nv)
+    mc = eo.load("mc", 7 * spec.nmocap, stride="ld") if obs_mc else None
     if spec.nsensordata:
         # the sensors read the carried qacc (when an acceleration sensor
         # is present) and the clock n * h
         qa = eo.load("qa", nv) if spec.carry_qacc else None
-        rows = bind_hooks(model, hooks, eo)[0](q, v, qa, eo.load("clk", 1)[0])
+        rows = bind_hooks(model, hooks, eo)[0](q, v, qa, eo.load("clk", 1)[0],
+                                               mocap=mc)
         sens_args = f"const {T}* qa, const {T}* clk, "
     else:
-        rows = bind_hooks(model, hooks, eo)[0](q, v)
+        rows = bind_hooks(model, hooks, eo)[0](q, v, mocap=mc)
         sens_args = ""
     if len(rows) != n_obs:
         raise ValueError(f"observe gave {len(rows)} rows, n_obs={n_obs}")
     eo.store("obs", rows)
     parts.append(eo.function(
         f"void oxc_observe(const {T}* q, const {T}* v, {sens_args}"
-        f"{T}* obs)"))
+        f"{mc_arg if obs_mc else ''}{T}* obs)"))
 
     er = Emitter(ctype)
     q, v, c = er.load("q", nq), er.load("v", nv), er.load("c", nu)
-    er.ret(bind_hooks(model, hooks, er)[1](q, v, c))
+    mc = er.load("mc", 7 * spec.nmocap, stride="ld") if rew_mc else None
+    er.ret(bind_hooks(model, hooks, er)[1](q, v, c, mocap=mc))
     parts.append(er.function(
-        f"{T} oxc_reward(const {T}* q, const {T}* v, const {T}* c)"))
+        f"{T} oxc_reward(const {T}* q, const {T}* v, const {T}* c"
+        f"{', ' + mc_arg[:-2] if rew_mc else ''})"))
 
     ez = Emitter(ctype)
     uni, z = ez.load("uni", nq), ez.load("z", nq + nv)
@@ -368,7 +412,11 @@ def kernel_source(model: Model, hooks: EnvHooks,
     ] + ([f"#define OXC_NEQ {spec.neq}"] if spec.neq else [])
       + ([f"#define OXC_NSENSORDATA {spec.nsensordata}"]
          if spec.nsensordata else [])
-      + (["#define OXC_CARRY_QACC 1"] if spec.carry_qacc else []))
+      + (["#define OXC_CARRY_QACC 1"] if spec.carry_qacc else [])
+      + ([f"#define OXC_NMOCAP {spec.nmocap}"] if spec.nmocap else [])
+      + (["#define OXC_OBS_MOCAP 1"] if obs_mc else [])
+      + (["#define OXC_REW_MOCAP 1"] if rew_mc else [])
+      + (["#define OXC_APPLIED 1"] if spec.applied else []))
     text = (f"/* emitted by oxide_control_torch.ops.megakernel.kernel_source"
             f" ({ctype}): do not edit */\n#pragma once\n" + PRELUDE + "\n"
             + defines + "\n\n" + "\n".join(parts))
@@ -395,12 +443,27 @@ def _pack_params(params, dims, device, dtype):
     return torch.cat(flat).to(device=device, dtype=dtype).contiguous()
 
 
-def _eq_lanes(eq_active):
-    """(neq, B) 0/1 rows -> the step's bool lanes (None without
-    equality): the kernel's ``eq_active != 0``."""
-    if eq_active is None or not len(eq_active):
-        return None
-    return [row != 0 for row in eq_active]
+# the inputs that are constant over one call, in the reference kernel's
+# order (oxide_control_tpu/ops/megakernel.py:143-146)
+CALL_INPUTS = ("mocap", "eq_active", "qfrc", "xfrc")
+
+
+def input_rows(spec: EnvSpec) -> dict:
+    """Rows of each call input the spec takes (0: it takes none)."""
+    return dict(mocap=7 * spec.nmocap, eq_active=spec.neq,
+                qfrc=spec.nv if spec.applied else 0,
+                xfrc=6 * spec.nbody if spec.applied else 0)
+
+
+def _step_inputs(ins):
+    """The step's lanes of the call inputs ``(mocap, eq_active, qfrc,
+    xfrc)``: ``(eq_act, dict of keywords)``, None for an input absent or
+    of 0 rows; eq_active's lanes are the kernel's ``eq_active != 0``."""
+    lanes = [None if x is None or not len(x) else list(x) for x in ins]
+    mocap, eqa, qf, xf = lanes
+    if eqa is not None:
+        eqa = [row != 0 for row in eqa]
+    return eqa, dict(mocap=mocap, qfrc_ext=qf, xfrc_ext=xf)
 
 
 class _GraphedStep:
@@ -413,15 +476,17 @@ class _GraphedStep:
 
     def __init__(self, bk, step, spec: EnvSpec):
         dev = bk.device
-        # the eq_active rows are an input buffer too: nothing is copied
-        # from the host while the graph is captured
+        # the call inputs (mocap, eq_active, qfrc, xfrc) are input buffers
+        # too: nothing is copied from the host while the graph is captured
+        rows = input_rows(spec)
         self.ins = [torch.zeros((n, bk.batch), device=dev, dtype=bk.dtype)
                     for n in (spec.nq, spec.nv, spec.na, spec.nv, spec.nu,
-                              spec.neq)]
+                              *(rows[k] for k in CALL_INPUTS))]
 
         def run():
             q, v, a, w, c = (list(x) for x in self.ins[:5])
-            outs = step(q, v, a, w, c, _eq_lanes(self.ins[5]))
+            eqa, ext = _step_inputs(self.ins[5:])
+            outs = step(q, v, a, w, c, eqa, **ext)
             return [torch.stack([bk.full(x) for x in xs]) if xs else None
                     for xs in outs]
 
@@ -436,12 +501,13 @@ class _GraphedStep:
         with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
             self.outs = run()
 
-    def __call__(self, q, v, a, w, c, eq_active=None):
+    def __call__(self, q, v, a, w, c, ins):
         for buf, xs in zip(self.ins, (q, v, a, w, c)):
             if xs:
                 buf.copy_(torch.stack(xs))
-        if eq_active is not None:
-            self.ins[5].copy_(eq_active)
+        for buf, x in zip(self.ins[5:], ins):
+            if x is not None:
+                buf.copy_(x)
         self.graph.replay()
         return tuple([] if o is None else list(o.clone())
                      for o in self.outs)
@@ -450,13 +516,20 @@ class _GraphedStep:
 class RolloutFn:
     """``fn(qpos (nq,B), qvel (nv,B), act (max(na,1),B), ws (nv,B),
     time (1,B)[, qacc (nv,B)], ctrl (K,nu,B) | None, seed (1,) int32,
-    params=None, eq_active=None)``.
+    params=None, eq_active=None, *, mocap=None, qfrc=None, xfrc=None)``.
 
-    Without a policy ``ctrl`` is required; with one, ``params`` is the
-    list (W_1, b_1, ..., W_L, b_L) with W (out, in) and b (out, 1) and
-    ``ctrl`` is None.  A model with equality constraints takes
-    ``eq_active (neq,B)`` in the state's dtype, 0/1 per env and equality
-    (Data.eq_active, constant over the call); a model without takes none.
+    Without a policy ``ctrl`` is required (a model without actuators may
+    pass one unused row, ``(K, 1, B)``, as the reference's callers do);
+    with one, ``params`` is the list (W_1, b_1, ..., W_L, b_L) with W
+    (out, in) and b (out, 1) and ``ctrl`` is None.  The call inputs are
+    constant over the call, each ``(rows, B)`` in the state's dtype on
+    its device, and required exactly when the model or the build takes
+    them: ``mocap (7*nmocap,B)``, (pos3, quat4) per mocap body
+    (Data.mocap_pos/mocap_quat), for a model with mocap bodies;
+    ``eq_active (neq,B)``, 0/1 per env and equality (Data.eq_active), for
+    a model with equality constraints; ``qfrc (nv,B)`` and
+    ``xfrc (6*nbody,B)`` (Data.qfrc_applied, xfrc_applied: force then
+    torque per body) with ``applied_forces``.
     A task that observes an accelerometer-family sensor carries the
     stage-1 ``qacc`` as a sixth state element, after time (``n_state``
     is 6, as in the reference).
@@ -472,7 +545,7 @@ class RolloutFn:
 
     def __init__(self, model: Model, batch: int, steps_per_call: int,
                  hooks: EnvHooks, emit_obs: bool = False, policy=None,
-                 fmad: bool = False):
+                 fmad: bool = False, applied_forces: bool = False):
         reason = sg.unsupported_reason(model)
         if reason is not None:
             raise ValueError(f"model not kernel-eligible: {reason}")
@@ -480,7 +553,7 @@ class RolloutFn:
             raise ValueError("the rollout kernel needs EnvHooks.observe")
         self.model = model
         self.hooks = hooks
-        self.spec = env_spec(model, hooks)
+        self.spec = env_spec(model, hooks, applied_forces)
         self.n_state = 6 if self.spec.carry_qacc else 5
         self.batch = batch
         self.steps = steps_per_call
@@ -504,24 +577,28 @@ class RolloutFn:
 
     # ----- shared checks -----
     def _bind(self, args, kw):
-        """``(state, ctrl, seed, params, eq_active)`` of a call: the
-        first ``n_state`` arguments are the state, the rest as named."""
+        """``(state, ctrl, seed, params, mocap, eq_active, qfrc, xfrc)``
+        of a call: the first ``n_state`` arguments are the state, then
+        ctrl, seed, params and eq_active by position or name; mocap, qfrc
+        and xfrc by name."""
         n = self.n_state
         if len(args) < n:
             raise ValueError(f"the rollout takes {n} state tensors, got "
                              f"{len(args)}")
         names = ("ctrl", "seed", "params", "eq_active")
-        if len(args) > n + len(names) or set(kw) - set(names):
+        if len(args) > n + len(names) or set(kw) - set(names + CALL_INPUTS):
             raise TypeError("arguments after the state: ctrl, seed, "
-                            "params, eq_active")
+                            "params, eq_active; by name mocap, qfrc, xfrc")
         rest = dict(zip(names, args[n:]))
         for k, x in kw.items():
             if k in rest:
                 raise TypeError(f"{k} given twice")
             rest[k] = x
-        return (tuple(args[:n]),) + tuple(rest.get(k) for k in names)
+        return (tuple(args[:n]),) + tuple(
+            rest.get(k) for k in ("ctrl", "seed", "params") + CALL_INPUTS)
 
-    def _check(self, state, ctrl, seed, params, eq_active):
+    def _check(self, state, ctrl, seed, params, mocap=None, eq_active=None,
+               qfrc=None, xfrc=None):
         s, B, K = self.spec, self.batch, self.steps
         want = dict(qpos=(s.nq, B), qvel=(s.nv, B), act=(self.na_rows, B),
                     ws=(s.nv, B), time=(1, B), qacc=(s.nv, B))
@@ -533,7 +610,8 @@ class RolloutFn:
             if t.device != dev or t.dtype != dtype:
                 raise ValueError(f"{name} must be {dtype} on {dev}")
         if self.policy is None:
-            if ctrl is None or tuple(ctrl.shape) != (K, s.nu, B):
+            shapes = {(K, s.nu, B), (K, max(s.nu, 1), B)}
+            if ctrl is None or tuple(ctrl.shape) not in shapes:
                 raise ValueError(f"ctrl must have shape {(K, s.nu, B)}")
             if ctrl.device != dev or ctrl.dtype != dtype:
                 raise ValueError(f"ctrl must be {dtype} on {dev}")
@@ -542,16 +620,18 @@ class RolloutFn:
                              "(W_1, b_1, ..., W_L, b_L)")
         if seed is None or seed.numel() != 1 or seed.device != dev:
             raise ValueError(f"seed must be one int32 on {dev}")
-        if s.neq == 0 and eq_active is not None:
-            raise ValueError("eq_active given for a model without equality "
-                             "constraints")
-        if s.neq and (eq_active is None
-                      or tuple(eq_active.shape) != (s.neq, B)
-                      or eq_active.device != dev
-                      or eq_active.dtype != dtype):
-            raise ValueError(f"a model with {s.neq} equality constraints "
-                             f"needs eq_active of shape {(s.neq, B)}, "
-                             f"{dtype} on {dev}")
+        what = dict(mocap="mocap bodies", eq_active="equality constraints",
+                    qfrc="applied forces", xfrc="applied forces")
+        for (name, rows), x in zip(input_rows(s).items(),
+                                   (mocap, eq_active, qfrc, xfrc)):
+            if not rows and x is not None:
+                raise ValueError(f"{name} given for a rollout without "
+                                 f"{what[name]}")
+            if rows and (x is None or tuple(x.shape) != (rows, B)
+                         or x.device != dev or x.dtype != dtype):
+                raise ValueError(f"a rollout with {what[name]} needs "
+                                 f"{name} of shape {(rows, B)}, {dtype} "
+                                 f"on {dev}")
 
     def _alloc(self, like):
         s, B, K = self.spec, self.batch, self.steps
@@ -583,16 +663,18 @@ class RolloutFn:
         build/ by source hash); returns ``ops.build.Built``."""
         if self._lib is None:
             from . import build
-            src = kernel_source(self.model, self.hooks, "float")
+            src = kernel_source(self.model, self.hooks, "float",
+                                self.spec.applied)
             self._lib = build.build_rollout_library(src, fmad=self.fmad)
         return self._lib
 
-    def _launch(self, state, ctrl, seed, params, eq_active):
-        self._check(state, ctrl, seed, params, eq_active)
+    def _launch(self, state, ctrl, seed, params, mocap=None, eq_active=None,
+                qfrc=None, xfrc=None):
+        ins = (mocap, eq_active, qfrc, xfrc)
+        self._check(state, ctrl, seed, params, *ins)
         if state[0].dtype != torch.float32:
             raise ValueError("the rollout kernel takes float32 state")
-        for t in state + tuple(t for t in (ctrl, eq_active)
-                               if t is not None):
+        for t in state + tuple(t for t in (ctrl,) + ins if t is not None):
             if not t.is_contiguous():
                 raise ValueError("the rollout kernel takes contiguous "
                                  "tensors")
@@ -623,7 +705,8 @@ class RolloutFn:
         err = built.launch(
             *(ptr(t) for t in state[:5]), ptr(qacc),
             ptr(ctrl), ptr(seed), ptr(packed), ctypes.c_int(n_params),
-            ptr(eq_active), ctypes.c_int(max(len(self.dims) - 1, 0)), dims,
+            *(ptr(t) for t in ins),
+            ctypes.c_int(max(len(self.dims) - 1, 0)), dims,
             ctypes.c_float(self.explore_sigma),
             *(ptr(t) for t in out[:5]), ptr(qacc_o),
             *(ptr(t) for t in out[ns:ns + 2]),
@@ -643,8 +726,10 @@ class RolloutFn:
         replayed from a CUDA graph: see :class:`_GraphedStep`)."""
         return self._plain(*self._bind(args, kw))
 
-    def _plain(self, state, ctrl, seed, params, eq_active):
-        self._check(state, ctrl, seed, params, eq_active)
+    def _plain(self, state, ctrl, seed, params, mocap=None, eq_active=None,
+               qfrc=None, xfrc=None):
+        ins = (mocap, eq_active, qfrc, xfrc)
+        self._check(state, ctrl, seed, params, *ins)
         s, B, K = self.spec, self.batch, self.steps
         qpos, qvel, act, ws, time = state[:5]
         dev, dtype = qpos.device, qpos.dtype
@@ -655,8 +740,9 @@ class RolloutFn:
             if dev.type == "cuda":
                 step = _GraphedStep(bk, step, s)
             else:
-                step = (lambda f: lambda q, v, a, w, c, e: f(
-                    q, v, a, w, c, _eq_lanes(e)))(step)
+                def step(q, v, a, w, c, ins, f=step):
+                    eqa, ext = _step_inputs(ins)
+                    return f(q, v, a, w, c, eqa, **ext)
             self._plain_steps[key] = (bk, step,
                                       *bind_hooks(self.model, self.hooks, bk))
         bk, step, observe, reward = self._plain_steps[key]
@@ -669,6 +755,8 @@ class RolloutFn:
         a = [act[i] for i in range(s.na)]
         w = [ws[i] for i in range(s.nv)]
         qa = [state[5][i] for i in range(s.nv)] if s.carry_qacc else None
+        # the hooks read the mocap poses where they read the FK
+        moc = _step_inputs(ins)[1]["mocap"]
         n = torch.round(time[0] * (1.0 / h)).to(torch.int32)
         rew = torch.zeros(B, device=dev, dtype=dtype)
         ndiv = torch.zeros(B, device=dev, dtype=dtype)
@@ -680,7 +768,8 @@ class RolloutFn:
         for k in range(K):
             # the clock reads the step counter, as the kernel does
             clk = n.to(dtype) * h if s.nsensordata else None
-            obs = torch.stack([bk.full(o) for o in observe(q, v, qa, clk)])
+            obs = torch.stack([bk.full(o)
+                               for o in observe(q, v, qa, clk, mocap=moc)])
             if self.policy is not None:
                 cmat = mlp_forward(layers, obs)
                 if self.explore_sigma > 0.0:
@@ -698,7 +787,7 @@ class RolloutFn:
                 if self.policy is not None:
                     outs[ns + 5][k] = cmat
 
-            q, v, a, w, *qa1 = step(q, v, a, w, c, eq_active)
+            q, v, a, w, *qa1 = step(q, v, a, w, c, ins)
             n = n + 1
             # divergence + time limit (bad before the reward, so a NaN
             # reward from a diverged state is masked, not accumulated)
@@ -708,7 +797,8 @@ class RolloutFn:
                     bad = bad | ~torch.isfinite(val) | (torch.abs(val) > 1e10)
             done = bad | (n >= s.limit_n)
             ndiv = ndiv + bad.to(dtype)
-            rew_t = torch.where(bad, 0.0, bk.full(reward(q, v, c)))
+            rew_t = torch.where(bad, 0.0, bk.full(reward(q, v, c,
+                                                         mocap=moc)))
             rew = rew + rew_t
             if self.emit_obs:
                 outs[ns + 3][k] = rew_t
@@ -745,11 +835,14 @@ class RolloutFn:
 
 def build_rollout(model: Model, batch: int, steps_per_call: int,
                   hooks: EnvHooks, emit_obs: bool = False,
-                  policy=None, fmad: bool = False) -> RolloutFn:
+                  policy=None, fmad: bool = False,
+                  applied_forces: bool = False) -> RolloutFn:
     """The K-step rollout function for ``model`` (see :class:`RolloutFn`);
     ``policy`` is an ``MLPPolicy`` whose layer sizes and exploration sigma
     the kernel takes at run time (its weights are call inputs).  ``fmad``
     builds the kernel with FMA contraction: faster, but it no longer
-    rounds as the plain version does (see ``ops.build``)."""
+    rounds as the plain version does (see ``ops.build``).
+    ``applied_forces`` adds the qfrc and xfrc call inputs
+    (Data.qfrc_applied, xfrc_applied), as the reference's flag does."""
     return RolloutFn(model, batch, steps_per_call, hooks, emit_obs=emit_obs,
-                     policy=policy, fmad=fmad)
+                     policy=policy, fmad=fmad, applied_forces=applied_forces)

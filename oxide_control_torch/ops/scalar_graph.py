@@ -3,9 +3,10 @@
 The port of ``oxide_control_tpu/ops/scalar_graph.py`` for the control
 suite's class widened by stateful and muscle actuators, fixed and spatial
 tendons (sphere and cylinder wraps), friction loss, equality constraints,
-every narrowphase pair of the reference, ball joints, and elliptic cones
-and condim 4/6 (see :func:`supports`), with the in-kernel sensors the
-observation hooks read (:func:`build_sensors`).  The whole ``mj_step`` of
+every narrowphase pair of the reference, ball joints, elliptic cones
+and condim 4/6, fluid forces, mocap bodies and applied forces (see
+:func:`supports`), with the in-kernel sensors the observation hooks read
+(:func:`build_sensors`).  The whole ``mj_step`` of
 one env is built as a graph of elementwise operations on per-env scalars; the
 model's structure (tree topology, joint axes, geom pairs, constraint
 rows) is compiled away at build time:
@@ -690,7 +691,13 @@ def unsupported_reason(model: Model) -> str | None:
       limits, friction loss and transmission; dof friction loss
     * equality: connect, weld, joint and tendon, active or not at build
       time (every row is gated by its runtime eq_active lane)
-    * no mocap bodies or fluid forces
+    * fluid forces (the inertia-box model: density, viscosity, wind)
+    * mocap bodies, posed by runtime lanes, and applied forces
+      (Data.qfrc_applied and xfrc_applied) as runtime lanes
+
+    The reference's ``supports`` also admits a site transmission with a
+    refsite, which its kernel step computes as if there were none; the
+    port refuses it (ROADMAP, known faults in the reference).
     """
     for j in range(model.njnt):
         jt = JointType(model.jnt_type[j])
@@ -739,11 +746,6 @@ def unsupported_reason(model: Model) -> str | None:
                         "only sphere and cylinder wraps are in the kernel "
                         "class; others stay on the general path (ROADMAP "
                         "Queue A item 11)")
-    if model.nmocap:
-        return "mocap bodies are ROADMAP Queue A item 10.8"
-    if (model.opt.density != 0.0 or model.opt.viscosity != 0.0
-            or any(float(w) != 0.0 for w in model.opt.wind)):
-        return "fluid forces are ROADMAP Queue A item 10.6"
     return None
 
 
@@ -1205,12 +1207,18 @@ def _transmission(bk, model, mc, u, fk, bd_mask, qpos, ten, need_length):
     return moment, 0.0
 
 
-def _fk_chain(bk, model, mc, sub_mask, qpos, com: bool = True):
+def _fk_chain(bk, model, mc, sub_mask, qpos, com: bool = True,
+              mocap=None):
     """FK + com geometry for hinge/slide/ball/free trees: every
     position-dependent quantity the downstream stages and the env hooks
     read (xanchor/xaxis captured during the walk, before each joint's own
     transform, as mj_kinematics does).  ``com=False`` stops after the body
-    frames: no subtree coms and no cdof."""
+    frames: no subtree coms and no cdof.
+
+    ``mocap``: 7 * nmocap values, (pos3, quat4) per mocap body in
+    Data.mocap_pos/mocap_quat order, that replace the model's rest poses
+    of the mocap bodies (the quaternion is normalized, as mj_kinematics
+    does); without it a mocap body keeps its rest pose."""
     nbody, nv = model.nbody, model.nv
     xpos = [(0.0, 0.0, 0.0)] * nbody
     xquat = [(1.0, 0.0, 0.0, 0.0)] * nbody
@@ -1218,6 +1226,12 @@ def _fk_chain(bk, model, mc, sub_mask, qpos, com: bool = True):
     xaxis = [None] * model.njnt
     for b in range(1, nbody):
         p = model.body_parentid[b]
+        mid = model.body_mocapid[b] if mocap is not None else -1
+        if mid >= 0:
+            xpos[b] = tuple(mocap[7 * mid + i] for i in range(3))
+            xquat[b] = qnormalize(bk, tuple(mocap[7 * mid + 3 + i]
+                                            for i in range(4)))
+            continue
         pos = vadd3(xpos[p], qrot(xquat[p], tuple(mc.body_pos[b])))
         quat = qmul(xquat[p], tuple(mc.body_quat[b]))
         jids = smooth.body_joints(model, b)
@@ -1317,11 +1331,16 @@ def _fk_chain(bk, model, mc, sub_mask, qpos, com: bool = True):
 def build_step(model: Model, bk, want_qacc: bool = False):
     """Build the scalar-graph step on backend ``bk``.
 
-    Returns ``step(qpos, qvel, act, warmstart, ctrl, eq_act=None) ->
-    (qpos', qvel', act', warmstart')`` over python lists of backend values
-    (one per generalized coordinate / activation / actuator).  ``eq_act``
-    is one bool lane per equality (Data.eq_active); without it the
-    equalities active at build time are always on (see :func:`_eq_rows`).
+    Returns ``step(qpos, qvel, act, warmstart, ctrl, eq_act=None, *,
+    mocap=None, qfrc_ext=None, xfrc_ext=None) -> (qpos', qvel', act',
+    warmstart')`` over python lists of backend values (one per
+    generalized coordinate / activation / actuator).  ``eq_act`` is one
+    bool lane per equality (Data.eq_active); without it the equalities
+    active at build time are always on (see :func:`_eq_rows`).  ``mocap``
+    holds the 7 * nmocap pose lanes of the mocap bodies (see
+    :func:`_fk_chain`); ``qfrc_ext`` (nv lanes) and ``xfrc_ext``
+    (6 * nbody lanes: force, then torque, per body) are Data.qfrc_applied
+    and Data.xfrc_applied.  RK4 feeds all of them to its four passes.
     ``want_qacc`` appends the step's stage-1 constrained qacc, the
     acceleration the sensors read (mj_step computes them before it
     integrates; under RK4 that is the first forward pass, not stage 4's).
@@ -1387,18 +1406,37 @@ def build_step(model: Model, bk, want_qacc: bool = False):
     cw_eqs = [e for e in range(model.neq)
               if EqType(model.eq_type[e]) in (EqType.CONNECT, EqType.WELD)]
 
-    def forward_pass(qpos, qvel, act, warmstart, ctrl, eq_act=None):
+    # fluid forces: (body, half-sizes of its equivalent inertia box) for
+    # every body with mass and dofs; none without density or viscosity
+    # (wind alone moves nothing), so such a model emits no op for them
+    density = float(model.opt.density)
+    viscosity = float(model.opt.viscosity)
+    wind = tuple(float(x) for x in model.opt.wind)
+    fluid_boxes = []
+    for b in range(1, nbody):
+        m_b = float(mc.body_mass[b])
+        if (density == 0.0 and viscosity == 0.0) or m_b <= 0.0 \
+                or not bd_mask[b].any():
+            continue
+        i3 = [float(x) for x in mc.body_inertia[b]]
+        fluid_boxes.append((b, [
+            math.sqrt(max(1.5 * (i3[(i + 1) % 3] + i3[(i + 2) % 3] - i3[i])
+                          / m_b, 1e-12)) for i in range(3)]))
+
+    def forward_pass(qpos, qvel, act, warmstart, ctrl, eq_act=None,
+                     mocap=None, qfrc_ext=None, xfrc_ext=None):
         """Forward dynamics to qacc (no integration) and act_dot."""
         if any(eq_act is not None or model.eq_active0[e] for e in cw_eqs):
             # connect and weld rows need d/dt of their Jacobian along
             # qvel: the one FK of the pass runs on Duals, and its primal
-            # (the very ops of the plain FK) is the step's FK
+            # (the very ops of the plain FK) is the step's FK; the mocap
+            # lanes enter it as constants (tangent 0)
             fk_d = _fk_chain(DualBackend(bk), model, mc, sub_mask,
-                             _qpos_duals(model, qpos, qvel))
+                             _qpos_duals(model, qpos, qvel), mocap=mocap)
             fk = _primal(fk_d)
         else:
             fk_d = None
-            fk = _fk_chain(bk, model, mc, sub_mask, qpos)
+            fk = _fk_chain(bk, model, mc, sub_mask, qpos, mocap=mocap)
         xpos, xquat, xmat, xipos = (fk["xpos"], fk["xquat"], fk["xmat"],
                                     fk["xipos"])
         subtree_com, cdof = fk["subtree_com"], fk["cdof"]
@@ -1617,6 +1655,47 @@ def build_step(model: Model, bk, want_qacc: bool = False):
             for vadr, coef in ten_mom[t].items():
                 qfrc_passive[vadr] = fma(qfrc_passive[vadr], coef, frc)
 
+        # fluid forces (mj_fluid's inertia-box model): each body with
+        # mass and dofs drags as the box of its inertia through the
+        # medium moving at the wind; the box and the coefficients are
+        # build-time constants, the body velocities are traced
+        for b, rbox in fluid_boxes:
+            origin = subtree_com[model.body_rootid[b]]
+            arm = vsub3(xipos[b], origin)
+            w_w = cvel[b][0]
+            v_w = vsub3(vadd3(cvel[b][1], cross3(w_w, arm)), wind)
+            imat = quat_to_mat(qmul(xquat[b], tuple(mc.body_iquat[b])))
+            w_l = mat_vec_t(imat, w_w)
+            v_l = mat_vec_t(imat, v_w)
+            f_l = [0.0, 0.0, 0.0]
+            t_l = [0.0, 0.0, 0.0]
+            rbar = (rbox[0] + rbox[1] + rbox[2]) / 3.0
+            if viscosity != 0.0:
+                # viscous (Stokes) force and torque of the box's sphere
+                cf = -6.0 * math.pi * viscosity * rbar
+                ct = -8.0 * math.pi * viscosity * rbar ** 3
+                f_l = [mul(cf, v_l[i]) for i in range(3)]
+                t_l = [mul(ct, w_l[i]) for i in range(3)]
+            if density != 0.0:
+                # quadratic drag on the box's faces
+                for i in range(3):
+                    rj, rk = rbox[(i + 1) % 3], rbox[(i + 2) % 3]
+                    f_l[i] = add(f_l[i], mul(
+                        -2.0 * density * rj * rk,
+                        mul(bk.abs(v_l[i]), v_l[i])))
+                    t_l[i] = add(t_l[i], mul(
+                        -0.5 * density * rbox[i] * (rj ** 4 + rk ** 4),
+                        mul(bk.abs(w_l[i]), w_l[i])))
+            f_w = mat_vec(imat, tuple(f_l))
+            t_w = mat_vec(imat, tuple(t_l))
+            sp_ang = vadd3(t_w, cross3(arm, f_w))
+            for dof in range(nv):
+                if bd_mask[b, dof]:
+                    ang, lin = cdof[dof]
+                    qfrc_passive[dof] = add(
+                        qfrc_passive[dof],
+                        add(dot3(ang, sp_ang), dot3(lin, f_w)))
+
         qfrc_actuator = [0.0] * nv
         act_dot = [0.0] * na
         for u in range(nu):
@@ -1678,6 +1757,24 @@ def build_step(model: Model, bk, want_qacc: bool = False):
             add(add(qfrc_passive[i], neg(qfrc_bias[i])), qfrc_actuator[i])
             for i in range(nv)
         ]
+        # applied forces (Data.qfrc_applied, and xfrc_applied through
+        # mj_xfrcAccumulate): the wrench of body b >= 1 acts at its com;
+        # the world's six lanes are read by nothing
+        if qfrc_ext is not None:
+            qfrc_smooth = [add(qfrc_smooth[i], qfrc_ext[i])
+                           for i in range(nv)]
+        if xfrc_ext is not None:
+            for b in range(1, nbody):
+                f3 = tuple(xfrc_ext[6 * b + k] for k in range(3))
+                t3 = tuple(xfrc_ext[6 * b + 3 + k] for k in range(3))
+                arm = vsub3(xipos[b], subtree_com[model.body_rootid[b]])
+                sp_ang = vadd3(t3, cross3(arm, f3))
+                for dof in range(nv):
+                    if bd_mask[b, dof]:
+                        ang, lin = cdof[dof]
+                        qfrc_smooth[dof] = add(
+                            qfrc_smooth[dof],
+                            add(dot3(ang, sp_ang), dot3(lin, f3)))
 
         l_m = chol_factor(m_mat)
         qacc_smooth = chol_solve(l_m, qfrc_smooth)
@@ -1762,9 +1859,11 @@ def build_step(model: Model, bk, want_qacc: bool = False):
 
     if model.opt.integrator == Integrator.EULER:
 
-        def step(qpos, qvel, act, warmstart, ctrl, eq_act=None):
+        def step(qpos, qvel, act, warmstart, ctrl, eq_act=None, *,
+                 mocap=None, qfrc_ext=None, xfrc_ext=None):
             fw = forward_pass(list(qpos), list(qvel), list(act),
-                              list(warmstart), list(ctrl), eq_act)
+                              list(warmstart), list(ctrl), eq_act,
+                              mocap, qfrc_ext, xfrc_ext)
             # semi-implicit Euler with implicit joint damping (mj_Euler)
             if model.any_damping and not model.opt.disable_eulerdamp:
                 damp = [h * float(mc.dof_damping[i]) for i in range(nv)]
@@ -1785,10 +1884,13 @@ def build_step(model: Model, bk, want_qacc: bool = False):
 
     else:  # RK4 (mj_RungeKutta, N=4): 4 chained forward passes
 
-        def step(qpos, qvel, act, warmstart, ctrl, eq_act=None):
+        def step(qpos, qvel, act, warmstart, ctrl, eq_act=None, *,
+                 mocap=None, qfrc_ext=None, xfrc_ext=None):
             qpos, qvel, act = list(qpos), list(qvel), list(act)
             ctrl = list(ctrl)
-            fw = forward_pass(qpos, qvel, act, list(warmstart), ctrl, eq_act)
+            ext = (mocap, qfrc_ext, xfrc_ext)
+            fw = forward_pass(qpos, qvel, act, list(warmstart), ctrl, eq_act,
+                              *ext)
             vels = [qvel]
             accs = [fw["qacc"]]
             adots = [fw["act_dot"]]
@@ -1809,7 +1911,7 @@ def build_step(model: Model, bk, want_qacc: bool = False):
                 act_i = [add(act[k], mul(h, da[k])) for k in range(na)]
                 # each stage warm-starts from the previous stage's qacc
                 fw = forward_pass(qpos_i, qvel_i, act_i, list(fw["qacc"]),
-                                  ctrl, eq_act)
+                                  ctrl, eq_act, *ext)
                 vels.append(qvel_i)
                 accs.append(fw["qacc"])
                 adots.append(fw["act_dot"])
@@ -1835,14 +1937,16 @@ def build_fk(model: Model, bk):
     ``_fk_chain`` the step computes, so frame-based rewards and
     observations read the step's own body frames.
 
-    Returns ``fk(qpos) -> dict`` with ``xpos[b]``, ``xquat[b]``,
-    ``xmat[b]`` (row-major 3x3), ``xipos[b]`` and ``site_xpos[s]`` as
-    tuples of backend values.
+    Returns ``fk(qpos, mocap=None) -> dict`` with ``xpos[b]``,
+    ``xquat[b]``, ``xmat[b]`` (row-major 3x3), ``xipos[b]`` and
+    ``site_xpos[s]`` as tuples of backend values; ``mocap`` poses the
+    mocap bodies (see :func:`_fk_chain`).
     """
     mc = _ModelConsts(model)
 
-    def fk(qpos):
-        out = _fk_chain(bk, model, mc, None, list(qpos), com=False)
+    def fk(qpos, mocap=None):
+        out = _fk_chain(bk, model, mc, None, list(qpos), com=False,
+                        mocap=mocap)
         out["site_xpos"] = [
             vadd3(out["xpos"][b], mat_vec(out["xmat"][b],
                                           tuple(mc.site_pos[s])))
@@ -2057,13 +2161,14 @@ def _act_len_vel(bk, model, mc, u, fk, bd_mask, qpos, qvel, ten):
 def build_sensors(model: Model, bk):
     """Scalar-graph sensors on backend ``bk``.
 
-    Returns ``sens(qpos, qvel, qacc=None, time=None) -> list`` of
-    ``model.nsensordata`` values, element for element with the reference's
+    Returns ``sens(qpos, qvel, qacc=None, time=None, mocap=None) -> list``
+    of ``model.nsensordata`` values, element for element with the reference's
     ``build_sensors`` (the general path's sensor_pos/vel/acc) for the
     kernel family (:func:`sensors_supported`), cutoffs included.  ``qacc``
     is the acceleration the accelerometer family reads (the step's
     stage-1 qacc: mj_step computes sensors before integrating, so the
-    values after step k read step k's entry state); ``time`` feeds CLOCK.
+    values after step k read step k's entry state); ``time`` feeds CLOCK;
+    ``mocap`` poses the mocap bodies (see :func:`_fk_chain`).
     """
     reason = unsupported_sensor_reason(model)
     if reason is not None:
@@ -2084,9 +2189,9 @@ def build_sensors(model: Model, bk):
         == TrnType.TENDON for i, t in enumerate(types))
     cutoff = [float(x) for x in _np(model.sensor_cutoff)] if types else []
 
-    def sens(qpos, qvel, qacc=None, time=None):
+    def sens(qpos, qvel, qacc=None, time=None, mocap=None):
         qpos, qvel = list(qpos), list(qvel)
-        fk = _fk_chain(bk, model, mc, sub_mask, qpos)
+        fk = _fk_chain(bk, model, mc, sub_mask, qpos, mocap=mocap)
         cvel = cdof_dot = cacc = ten = None
         if need_vel:
             cvel, cdof_dot = _com_vel_sg(model, fk, qvel)

@@ -6,8 +6,9 @@ version): the Euler step (hopper, cheetah), the RK4 step (cartpole), the
 free joint (the sphere), the muscle on a wrapped spatial tendon (the arm),
 fixed tendons with friction loss and limits, stateful actuators,
 equality rows and the narrowphase pairs, ball joints (the cable),
-elliptic cones, walker's reward, which reads the FK, and the sensor
-rows with the qacc carry.  Every kernel source the smoke builds is pinned
+elliptic cones, walker's reward, which reads the FK, the sensor
+rows with the qacc carry, and fluid forces, mocap poses and applied
+forces (the call inputs).  Every kernel source the smoke builds is pinned
 by its hash, so porting a later part leaves the earlier ones
 byte-identical.  Its float form is checked for stray
 double literals and for the Newton/line-search and wrap-search loops that
@@ -402,10 +403,12 @@ extern "C" void run_batch(const double* q, const double* v, const double* a,
 
 # sha256 (first 16 hex digits) of the float kernel source of each distinct
 # (model, hooks) pair the smoke builds (ENVS keys of chip_smoke.py, and
-# cheetah with Gaussian reset noise): porting a later part of the kernel
-# (ball joints and cones, then sensors and the qacc carry) changed no
-# earlier model's kernel.  The three elliptic sources are pinned as of the
-# cone Hessian's one-rounding division of mub2 by D0.
+# cheetah with Gaussian reset noise, and cheetah-run-push's cheetah with
+# applied forces): porting a later part of the kernel (ball joints and
+# cones, then sensors and the qacc carry, then fluid forces, mocap poses
+# and applied forces) changed no earlier model's kernel.  The three
+# elliptic sources are pinned as of the cone Hessian's one-rounding
+# division of mub2 by D0.
 EARLIER_SOURCES = {
     "cheetah/run": "e40d1e0a0c579f25", "walker/walk": "9efbfd70f1491e7b",
     "cartpole/swingup": "be1ba6dc20524d50",
@@ -427,6 +430,8 @@ EARLIER_SOURCES = {
     "elliptic-condim6": "b0496f702c2c2ec0",
     "walker/walk-tendon-sensors": "fd8a2e32c19c41bd",
     "sensors-all": "b0099d692b878ee2",
+    "cheetah push": "a620462dc980b17f", "fluid-forces": "7245559f973113ce",
+    "mocap-weld": "024656766080884f", "applied-forces": "112c0f9446126193",
 }
 
 
@@ -442,13 +447,96 @@ def test_earlier_kernel_sources_are_byte_identical(key, monkeypatch):
     # the smoke's environments, built on the CPU
     monkeypatch.setattr(environment, "default_device",
                         lambda device=None: torch.device("cpu"))
-    benv = chip_smoke.ENVS["cheetah/run" if key == "cheetah gauss"
+    benv = chip_smoke.ENVS["cheetah/run" if key.startswith("cheetah ")
                            else key]()
     hooks = benv.task.kernel_hooks(benv.model)
     if key == "cheetah gauss":
         hooks = dataclasses.replace(
             hooks, reset_qpos_sigma=[0.0] * 3 + [0.05] * 6,
             reset_qvel_sigma=0.1)
-    text = mk.kernel_source(benv.model, hooks, "float").text
+    applied = key in ("cheetah push", "applied-forces")
+    text = mk.kernel_source(benv.model, hooks, "float", applied).text
     assert hashlib.sha256(text.encode()).hexdigest()[:16] == \
         EARLIER_SOURCES[key]
+
+
+def _slice7_env(name):
+    """(model in f64, hooks, applied_forces) of a source with call
+    inputs: the smoke's three parity models and cheetah-run-push."""
+    import chip_smoke
+
+    from oxide_control_torch import bench_configs
+
+    if name == "cheetah-push":
+        m = load_asset("cheetah")
+        return m, suite.cheetah.run(model=m)[1].kernel_hooks(m), True
+    xml = dict(fluid=chip_smoke.FLUID_XML, mocap=chip_smoke.MOCAP_WELD_XML,
+               applied=chip_smoke.APPLIED_XML)[name]
+    m = load_model_from_xml(xml)
+    return (m, bench_configs.BenchTask().kernel_hooks(m),
+            name == "applied")
+
+
+@pytest.mark.parametrize("name", ["fluid", "mocap", "applied",
+                                  "cheetah-push"])
+def test_emitted_call_input_sources_match_torch_backend(name, tmp_path):
+    """The sources with fluid forces, mocap poses (with eq lanes) and
+    applied forces through g++ in double, within 1e-9 of the torch
+    backend over 3 steps: the call inputs are read through a per-env
+    pointer with stride ``ld`` (1 here: env-major rows)."""
+    m, hooks, applied = _slice7_env(name)
+    src = mk.kernel_source(m, hooks, "double", applied).text
+    rows = mk.input_rows(mk.env_spec(m, hooks, applied))
+    assert ("#define OXC_NMOCAP 1" in src) == (name == "mocap")
+    assert ("#define OXC_APPLIED 1" in src) == applied
+    args = "".join(f"{n} + b * {rows[k]}, " for n, k in (
+        ("eq", "eq_active"), ("mc", "mocap"), ("qf", "qfrc"),
+        ("xf", "xfrc")) if rows[k]) + ("1, " if rows["mocap"] or applied
+                                         else "")
+    src += r"""
+extern "C" void step_batch(const double* q, const double* v, const double* a,
+                           const double* w, const double* c, const bool* eq,
+                           const double* mc, const double* qf,
+                           const double* xf, double* qo, double* vo,
+                           double* ao, double* wo, int n) {
+  for (int b = 0; b < n; ++b)
+    oxc_step(q + b * OXC_NQ, v + b * OXC_NV, a + b * OXC_NA, w + b * OXC_NV,
+             c + b * OXC_NU, %s qo + b * OXC_NQ, vo + b * OXC_NV,
+             ao + b * OXC_NA, wo + b * OXC_NV);
+}
+""" % args
+    lib, _ = _gxx(src, tmp_path)
+    if name == "cheetah-push":
+        qpos, qvel, ws, ctrl = _inputs(m, seed=1)
+    else:
+        from test_torch_ball import _state
+
+        qpos, qvel, ctrl = _state(m, 2)
+        ws = np.zeros((B, m.nv))
+    rng = np.random.default_rng(6)
+    ins = {k: rng.uniform(-1.0, 1.0, (B, n)) for k, n in rows.items()}
+    ins["eq_active"] = np.tile([[1, 0], [1, 1], [0, 0], [0, 1]],
+                               (B // 4, 1))[:, :rows["eq_active"]] != 0
+    if rows["mocap"]:
+        ins["mocap"][:, :3] *= 0.1
+        ins["mocap"][:, :3] += np.asarray(m.body_pos)[1]
+    eqa, ext = mk._step_inputs([torch.tensor(ins[k].T.copy())
+                                for k in mk.CALL_INPUTS])
+    act = np.zeros((B, m.na))
+    step = sg.build_step(m, sg.TorchBackend(B, torch.float64, "cpu"))
+    q, v, a, w, c = (_cols(x) for x in (qpos, qvel, act, ws, ctrl))
+    cq, cv, ca, cw, cc = (np.ascontiguousarray(x)
+                          for x in (qpos, qvel, act, ws, ctrl))
+    ptr = lambda x: np.ascontiguousarray(x).ctypes.data_as(ctypes.c_void_p)
+    held = [np.ascontiguousarray(ins[k]) for k in mk.CALL_INPUTS]
+    for _ in range(3):
+        q, v, a, w = step(q, v, a, w, c, eqa, **ext)
+        qo, vo, ao, wo = (np.zeros_like(x) for x in (cq, cv, ca, cw))
+        lib.step_batch(ptr(cq), ptr(cv), ptr(ca), ptr(cw), ptr(cc),
+                       ptr(held[1]), ptr(held[0]), ptr(held[2]),
+                       ptr(held[3]), ptr(qo), ptr(vo), ptr(ao), ptr(wo),
+                       ctypes.c_int(B))
+        cq, cv, ca, cw = qo, vo, ao, wo
+        np.testing.assert_allclose(cq, _stack(q), rtol=0, atol=1e-9)
+        np.testing.assert_allclose(cv, _stack(v), rtol=0, atol=1e-9)
+        np.testing.assert_allclose(cw, _stack(w), rtol=0, atol=1e-9)

@@ -135,8 +135,11 @@ def test_build_sensors_matches_reference(name):
         # the gyro's cutoff of 1 clips some of these states
         gyro = m.sensor_adr[list(m.sensor_type).index(SensorType.GYRO)]
         assert (np.abs(got[:, gyro:gyro + 3]) == 1.0).any()
-    with pytest.raises(TypeError):  # mocap poses wait for ROADMAP 10.8
-        sens(_cols(qpos), _cols(qvel), qacc=_cols(qacc), mocap=[])
+    # no mocap body: the mocap input poses nothing (test_torch_slice7
+    # holds mocap poses against the reference's)
+    np.testing.assert_array_equal(_stack(sens(
+        _cols(qpos), _cols(qvel), qacc=_cols(qacc), time=torch.tensor(time),
+        mocap=[])), got)
 
 
 # seeds without a line-search tie: a 1e-14 relative nudge of qpos moves
@@ -318,3 +321,5 @@ def test_launch_passes_each_buffer_to_its_c_parameter(carry, monkeypatch):
     for name in ("qacc_in", "qacc_o"):
         assert (ptr(args[name]) != 0) == carry, name
     assert ptr(args["ctrls_o"]) == 0 and ptr(args["eq_active"]) == 0
+    for name in ("mocap", "qfrc", "xfrc"):
+        assert ptr(args[name]) == 0, name
