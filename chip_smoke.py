@@ -30,7 +30,9 @@ Phases, each fatal on failure:
    plain version's outputs (bars below; every output is expected to be
    bit-identical, and a mode that is not fails), and each main-path row's
    kernel timed on its own parity inputs, plus the FMA-contracted cheetah
-   build (the price of bit-exact parity);
+   build (the price of bit-exact parity) and the one-lane (G = 1) builds
+   of cheetah-run, humanoid-run and humanoid-run-policy-obs, timed in
+   turns with the rows' team builds;
 6. main path: 1 warm-up + 10 timed calls of each row (CUDA events), with
    the kernel's launch count set to 0 before and read after those calls;
    then, outside the count, cheetah-run-push's push check: from one reset
@@ -54,6 +56,11 @@ mocap-weld@1024 (per-env mocap poses and eq_active rows) and
 applied-forces@1024 (per-env qfrc and xfrc on every body); and the two
 options off the main path (exploration noise, Gaussian reset noise) at
 K = 24.
+
+Every kernel source is built at its team size G (``megakernel.team_rule``:
+G lanes of one warp run one env, splitting the line search's row sums and
+the MLP's outputs), and the plain version follows the same summation
+order, so the two agree bit for bit at every G.
 
 Needs one CUDA card; exits non-zero without one.
 """
@@ -607,6 +614,9 @@ EXTRA_MODES = (
     ("cheetah explore", "cheetah/run", 24, "explore"),
     ("cheetah gaussian_reset", "cheetah/run", 24, "gauss"),
 )
+# the rows also timed at G = 1, in turns with their team builds
+SOLO_ROWS = ("cheetah-run@4096", "humanoid-run@8192",
+             "humanoid-run-policy-obs@8192")
 N_TIMED = 10
 # peaks of one H100 SXM (NVIDIA data sheet, 700 W): 67 TFLOP/s f32 counts
 # an FMA as two, so 33.5e12 separate lane-ops/s; special functions at 16
@@ -660,8 +670,9 @@ def finish_builds(pool, futures, t_start):
         log(f"  {label}: nvcc {nvcc_s:.2f} s, {b.emitted_lines} emitted "
             f"lines, {b.registers} registers, {b.stack_bytes} B stack, "
             f"{b.spill_stores} B spill stores, {b.spill_loads} B spill "
-            f"loads; step {b.step_ops} lane-ops ({b.step_sfu_ops} "
-            "special-function)")
+            f"loads; team G={b.team}, step {b.step_ops} lane-ops per lane "
+            f"({b.step_sfu_ops} special-function; {b.work_step_ops} at "
+            "G=1)")
     # each library with the seconds of the one thread that ran its nvcc
     return {label: dataclasses.replace(b, seconds=max(
         x.seconds for x in built.values() if x.so_path == b.so_path))
@@ -866,16 +877,29 @@ def parity_phase(modes, plain):
     return res
 
 
-def timing_phase(rolls, plain, fma):
-    """Each main-path row's kernel on its own parity inputs, and the
-    FMA-contracted cheetah build on the cheetah-run inputs."""
+def timing_phase(rolls, plain, fma, solo):
+    """Each main-path row's kernel on its own parity inputs, the
+    FMA-contracted cheetah build on the cheetah-run inputs, and the rows
+    of ``solo`` at G = 1 in turns with their team builds (team, G = 1,
+    G = 1, team: each row's ms is the mean of its two turns)."""
     res = {}
     for row, roll in rolls.items():
         kern, args = roll.kernel, plain[row]["args"]
         ms, out = time_kernel(kern, args, plain[row]["kw"])
         res[row] = dict(ms=ms, resets=resets_of(kern, args, out))
-        log(f"kernel {row}: {ms:.4f} ms per call ({res[row]['resets']} "
-            "resets)")
+        if row in solo:
+            one = solo[row]
+            turns = [ms, time_kernel(one, args, plain[row]["kw"])[0],
+                     time_kernel(one, args, plain[row]["kw"])[0],
+                     time_kernel(kern, args, plain[row]["kw"])[0]]
+            res[row].update(ms=(turns[0] + turns[3]) / 2,
+                            ms_team1=(turns[1] + turns[2]) / 2,
+                            turns=turns)
+            log(f"  {row}: team G={kern.team} {turns[0]:.4f} / "
+                f"{turns[3]:.4f} ms, G=1 {turns[1]:.4f} / {turns[2]:.4f} "
+                f"ms: {res[row]['ms_team1'] / res[row]['ms']:.3f}x")
+        log(f"kernel {row}: {res[row]['ms']:.4f} ms per call "
+            f"({res[row]['resets']} resets)")
         if row == "cheetah-run@4096":
             fo = fma(*args)
             fma_ms, _ = time_kernel(fma, args, {})
@@ -979,13 +1003,24 @@ def main_path_phase(rolls):
     return rows
 
 
+def warps_per_sm(fn, built):
+    """Warps one SM runs in a call: the one-warp blocks of the batch's
+    B * G lanes spread over the SMs, at most as many as an SM holds."""
+    n_params = (sum(t.numel() for t in fn.policy.kernel_params())
+                if fn.policy is not None else 0)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return min(fn.batch * built.team / 32 / sms,
+               built.occupancy(fn.policy is not None, n_params))
+
+
 def bound(fn, built, resets):
     """Least time of one call on this card: the larger of the lane-op,
-    special-function and byte times for this call's work."""
+    special-function and byte times for this call's work.  The work is the
+    one-lane (G = 1) step's: a team's redundant lanes are not counted."""
     s, b, k = fn.spec, fn.batch, fn.steps
     env_steps = b * k
-    ops = env_steps * (built.step_ops + built.env_ops)
-    sfu = env_steps * built.step_sfu_ops
+    ops = env_steps * (built.work_step_ops + built.env_ops)
+    sfu = env_steps * built.work_step_sfu_ops
     if fn.policy is not None:
         d = fn.dims
         macs = sum(d[i] * d[i + 1] for i in range(len(d) - 1))
@@ -1045,10 +1080,16 @@ def main():
             policy=explorer if variant == "explore" else None,
             applied_forces=variant == "applied"), variant)
     fma = mk.build_rollout(cheetah.model, 4096, 200, hooks, fmad=True)
+    # the one-lane builds the team builds are timed against
+    solo = {row: mk.build_rollout(
+        roll.benv.model, roll.benv.num_envs, roll.steps_per_call,
+        roll.kernel.hooks, emit_obs=roll.collect, policy=roll.policy,
+        team=1) for row, roll in rolls.items() if row in SOLO_ROWS}
 
     t_build = time.perf_counter()
     pool, futures = start_builds(
-        {**{label: fn for label, (_, fn, _) in modes.items()}, "fmad": fma})
+        {**{label: fn for label, (_, fn, _) in modes.items()}, "fmad": fma,
+         **{f"{row} G=1": fn for row, fn in solo.items()}})
     philox_phase()
     t = time.perf_counter()
     plain = plain_phase(modes)
@@ -1056,7 +1097,7 @@ def main():
     built = finish_builds(pool, futures, t_build)
     t = time.perf_counter()
     par = parity_phase(modes, plain)
-    timed = timing_phase(rolls, plain, fma)
+    timed = timing_phase(rolls, plain, fma, solo)
     log(f"phase parity + timing: {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
     rows = main_path_phase(rolls)
@@ -1066,6 +1107,8 @@ def main():
     for row, roll in rolls.items():
         kern, b, p = roll.kernel, built[row], par[row]
         b_ms, by, work = bound(kern, b, timed[row]["resets"])
+        solo_ms = ({"ms_team1": timed[row]["ms_team1"]}
+                   if "ms_team1" in timed[row] else {})
         kernels.append(dict(
             name=f"rollout[{row}]", route="cuda",
             source="oxide_control_torch/ops/csrc/rollout.cu",
@@ -1077,7 +1120,10 @@ def main():
             stack_bytes=b.stack_bytes, spill_stores=b.spill_stores,
             spill_loads=b.spill_loads, build_s=b.seconds,
             emitted_lines=b.emitted_lines,
-            step_lane_ops=b.step_ops + b.env_ops, work=work,
+            step_lane_ops=b.work_step_ops + b.env_ops, team=b.team,
+            warps_per_sm=warps_per_sm(kern, b),
+            issued_lane_ops=b.team * (b.step_ops + b.env_ops), work=work,
+            **solo_ms,
             **{k: v for k, v in rows[row].items() if k == "push_effect_m"},
         ))
         log(f"kernel {row}: {timed[row]['ms']:.4f} ms per call, bound "

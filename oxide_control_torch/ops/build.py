@@ -54,10 +54,15 @@ class Built:
     spill_stores: int | None
     spill_loads: int | None
     ptxas_log: str
-    step_ops: int
+    step_ops: int         # per lane: a team's lanes each issue them
     step_sfu_ops: int
     reset_ops: int
     env_ops: int
+    team: int             # lanes per env
+    work_step_ops: int    # the G = 1 step's: the work the bound counts
+    work_step_sfu_ops: int
+    occupancy: object     # (policy, n_params) -> blocks of one warp
+                          # that one SM holds
 
 
 def _nvcc() -> str:
@@ -138,6 +143,18 @@ def build_rollout_library(src, fmad: bool = False) -> Built:
     es = lib.oxc_error_string
     es.argtypes = [ci]
     es.restype = ctypes.c_char_p
+    occ = lib.oxc_rollout_occupancy
+    occ.argtypes = [ci, ci, ctypes.POINTER(ci)]
+    occ.restype = ci
+
+    def occupancy(policy: bool, n_params: int) -> int:
+        blocks = ci(0)
+        err = occ(int(policy), n_params, ctypes.byref(blocks))
+        if err != 0:
+            raise RuntimeError(f"occupancy query failed: CUDA error {err} "
+                               f"({es(err).decode()})")
+        return blocks.value
+
     regs, stack, st, ld = _parse_ptxas(log)
     return Built(
         so_path=str(so), launch=fn,
@@ -146,5 +163,7 @@ def build_rollout_library(src, fmad: bool = False) -> Built:
         emitted_lines=src.text.count("\n"),
         registers=regs, stack_bytes=stack, spill_stores=st, spill_loads=ld,
         ptxas_log=log, step_ops=src.step_ops, step_sfu_ops=src.step_sfu_ops,
-        reset_ops=src.reset_ops, env_ops=src.env_ops,
+        reset_ops=src.reset_ops, env_ops=src.env_ops, team=src.team,
+        work_step_ops=src.work_step_ops,
+        work_step_sfu_ops=src.work_step_sfu_ops, occupancy=occupancy,
     )

@@ -1,5 +1,6 @@
 // Device helpers of the rollout kernel: Philox4x32-10, the [-1, 1) map of
-// the random bits, Box-Muller normals and the tanh-MLP policy.
+// the random bits, Box-Muller normals and the tanh-MLP policy (one lane
+// per env, or a team of G lanes per env).
 //
 // The plain PyTorch version (ops/megakernel.py: philox4x32, signed_unit,
 // box_muller, and the matmul policy) computes the same functions, so kernel
@@ -95,3 +96,41 @@ OXC_HD void oxc_mlp(const float* params, int n_layers, const int* dims,
   }
   for (int o = 0; o < dims[n_layers]; ++o) out[o] = x[o];
 }
+
+#ifdef __CUDACC__
+// tanh-MLP on one env, run by a team of G lanes of one warp (lane tl,
+// lane mask tm): lane tl computes the outputs o = tl (mod G) of each
+// layer, each dot product in oxc_mlp's order (input by input, then the
+// bias), and a layer's outputs reach the team's lanes through the team's
+// activation buffer xs (2 * OXC_MAX_WIDTH floats of shared memory, the
+// observation in its first half on entry).  The weights stay in global
+// memory, read through the L1 that every warp of the SM shares, in the
+// transposed layout the wrapper packs for a team -- per layer W^T (in,
+// out) row-major, then b (out) -- so the G lanes of a team, reading G
+// consecutive outputs of one input, read one cache line.  Returns the
+// buffer that holds the last layer's outputs.
+template <int G>
+__device__ __forceinline__ const float* oxc_mlp_team(
+    const float* __restrict__ params, int n_layers, const int* dims,
+    float* xs, int tl, unsigned tm) {
+  float* x = xs;
+  float* y = xs + OXC_MAX_WIDTH;
+  const float* p = params;
+  for (int l = 0; l < n_layers; ++l) {
+    const int nin = dims[l], nout = dims[l + 1];
+    __syncwarp(tm);  // x is whole; every lane is done with y
+    for (int o = tl; o < nout; o += G) {
+      float acc = 0.0f;
+      for (int i = 0; i < nin; ++i)
+        acc = acc + __ldg(p + i * nout + o) * x[i];
+      y[o] = tanhf(acc + __ldg(p + nin * nout + o));
+    }
+    p += nout * nin + nout;
+    float* t = x;
+    x = y;
+    y = t;
+  }
+  __syncwarp(tm);
+  return x;
+}
+#endif

@@ -75,6 +75,24 @@ OXC_HD double oxc_rsqrt(double a) { return 1.0 / sqrt(a); }
 """
 
 
+TEAM_PRELUDE = r"""
+#ifndef OXC_TEAM_HELPERS
+#define OXC_TEAM_HELPERS
+/* the value of x on lane (lane ^ o) of this lane's group of w lanes */
+OXC_HD float oxc_shfl_xor(float x, int o, int w, unsigned m) {
+#ifdef __CUDA_ARCH__
+  return __shfl_xor_sync(m, x, o, w);
+#else
+  /* a team source runs on the card only: no host caller has a team */
+  (void)o; (void)w; (void)m;
+  __builtin_trap();
+  return x;
+#endif
+}
+#endif
+"""
+
+
 class Sym:
     """A named C value of the emitter: float-typed (kind ``"f"``) or a
     ``bool`` mask (kind ``"b"``)."""
@@ -147,12 +165,21 @@ class Sym:
 class Emitter:
     """Backend whose values are :class:`Sym`; collects the C statements of
     one function body.  ``ctype`` is ``"float"`` (the kernel) or
-    ``"double"`` (host checks)."""
+    ``"double"`` (host checks).
 
-    def __init__(self, ctype: str = "float"):
+    With ``team`` G > 1 the body is run by a team of G lanes of one warp
+    (see ``scalar_graph._linesearch_scalar``): the function takes the
+    lane's index in its team, ``int tl``, and the team's lane mask,
+    ``unsigned tm``; ``team_lanes`` picks this lane's value of each slot
+    with a select tree on the bits of ``tl`` and ``team_sum`` sums a
+    value over the team with ``__shfl_xor_sync``.  Every other statement
+    is the same on every lane of the team."""
+
+    def __init__(self, ctype: str = "float", team: int = 1):
         if ctype not in _FUNCS:
             raise ValueError(f"ctype must be float or double, not {ctype!r}")
         self.ctype = ctype
+        self.team = team
         self._f = _FUNCS[ctype]
         self._lines: list[str] = []
         self._depth = 1
@@ -160,6 +187,10 @@ class Emitter:
         self._mult = 1
         self.ops = 0        # dynamic lane-ops per call of the function
         self.sfu_ops = 0    # of which special-function ops
+        self.line_search_terms = 0  # rows + cone rows each dphi sums
+        # the bits of the lane's index in its team, for team_lanes
+        self._lane_bits = [self._new(f"(tl & {1 << b}) != 0", "b")
+                           for b in range(team.bit_length() - 1)]
 
     # ----- printing -----
     def lit(self, x) -> str:
@@ -324,6 +355,34 @@ class Emitter:
         self._depth -= 1
         self._line("}")
         return vars_
+
+    # ----- the team of lanes -----
+    def team_lanes(self, columns):
+        """This lane's value of each column of G values (value l is lane
+        l's): a select tree on the bits of ``tl``, G - 1 selects at most,
+        none where the values are the same."""
+        out = []
+        for col in columns:
+            vals = list(col)
+            for bit in self._lane_bits:
+                vals = [a if self.arg(a) == self.arg(b)
+                        else self.where(bit, b, a)
+                        for a, b in zip(vals[0::2], vals[1::2])]
+            out.append(vals[0])
+        return out
+
+    def team_sum(self, x):
+        """The sum of ``x`` over the team, on every lane: a butterfly of
+        ``__shfl_xor_sync`` at offsets 1, 2, ..., G/2 within the team, so
+        lane l forms ((p0+p1)+(p2+p3))+... in some order of the operands
+        of each addition, which IEEE addition does not see."""
+        if _is_const(x):
+            return x
+        for b in range(len(self._lane_bits)):
+            y = self._new(f"oxc_shfl_xor({x.name}, {1 << b}, {self.team}, tm)",
+                          "f")
+            x = x + y
+        return x
 
     # ----- function assembly -----
     def load(self, array: str, n: int, kind: str = "f",

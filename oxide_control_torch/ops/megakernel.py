@@ -10,16 +10,19 @@ of the reference's ``Environment::step`` (observe -> ctrl -> step -> reward
 
 Two versions of one function, chosen by where the state lies:
 
-* CUDA tensors: the kernel ``ops/csrc/rollout.cu``, one thread per env over
-  the coordinate-major ``(rows, B)`` layout, the K loop inside the kernel,
-  the MLP weights in shared memory.  Its per-model parts (the step body,
+* CUDA tensors: the kernel ``ops/csrc/rollout.cu``, a team of G lanes of
+  one warp per env (:func:`team_rule`) over the coordinate-major
+  ``(rows, B)`` layout, the K loop inside the kernel; the team splits the
+  line search's row sums and the MLP's outputs.  Its per-model parts (the
+  step body,
   observation, reward and reset expressions) are C emitted by
   ``ops.emit`` from ``ops.scalar_graph`` and the task's :class:`EnvHooks`;
   ``ops.build`` compiles it with nvcc for ``sm_90a`` at first use.
 * CPU tensors: the plain PyTorch version -- the same scalar graph on
   ``(B,)`` tensors in a Python K loop, the same env layer, Philox stream
-  and MLP.  ``RolloutFn.plain`` runs it on any device, which is how the
-  kernel is compared with it on the card.
+  and MLP, summing the line search's rows in the team's order, so the
+  two agree bit for bit.  ``RolloutFn.plain`` runs it on any device,
+  which is how the kernel is compared with it on the card.
 
 Random numbers are counter-based Philox4x32-10 keyed on ``(seed, salt)``
 with counter ``(env, step, block, 0)``: reset noise (salt 7) and
@@ -303,14 +306,51 @@ def mlp_forward(layers, x: torch.Tensor) -> torch.Tensor:
 @dataclasses.dataclass(frozen=True)
 class KernelSource:
     text: str
-    step_ops: int        # dynamic lane-ops of one emitted step
+    step_ops: int        # dynamic lane-ops of one emitted step, per lane
     step_sfu_ops: int    # of which special-function ops
     reset_ops: int       # lane-ops of one masked reset (emitted part)
     env_ops: int         # observe + reward lane-ops per env-step
+    team: int            # lanes per env (OXC_TEAM)
+    work_step_ops: int   # lane-ops of the G = 1 step: the work the
+    work_step_sfu_ops: int  # algorithm needs, which the bound counts
+    line_search_terms: int  # rows + cone rows each dphi sums
+
+
+# the team rule, fixed from tools/team_sweep.py's table (PERF.md): a
+# model whose line search sums fewer than TEAM_MIN_TERMS terms gains
+# nothing from a team; among the rest, a G = 1 step of at most
+# TEAM_SMALL_OPS lane-ops keeps its state in registers and takes 8 lanes,
+# one of at most TEAM_LARGE_OPS spills a stack frame of some 2 KB, which
+# every lane of a team holds, so 4 lanes fill the L1 before 8 help; a
+# larger one (a dense mass matrix, a stack frame of 7-12 KB) runs its
+# step slower on any team and keeps G = 1, unless it runs the policy,
+# whose MLP the team splits: then 2 lanes
+TEAM_MIN_TERMS = 16
+TEAM_SMALL_OPS = 100_000
+TEAM_LARGE_OPS = 200_000
+
+
+def team_rule(src: KernelSource, policy: bool = False) -> int:
+    """The team size G of a model from its G = 1 source's counts -- the
+    line-search terms (rows + cone rows) and the step's lane-ops -- and
+    whether the rollout runs the in-kernel policy."""
+    if src.line_search_terms < TEAM_MIN_TERMS:
+        return 1
+    if src.work_step_ops > TEAM_LARGE_OPS:
+        return 2 if policy else 1
+    return 8 if src.work_step_ops <= TEAM_SMALL_OPS else 4
+
+
+def default_team(model: Model, hooks: EnvHooks, applied_forces: bool = False,
+                 policy: bool = False) -> int:
+    """The team size the kernel of ``model`` runs at (:func:`team_rule`)."""
+    return team_rule(_emit_source(model, hooks, "float", applied_forces, 1),
+                     policy)
 
 
 def kernel_source(model: Model, hooks: EnvHooks, ctype: str = "float",
-                  applied_forces: bool = False) -> KernelSource:
+                  applied_forces: bool = False,
+                  team: int | None = None) -> KernelSource:
     """The per-model C header the CUDA shell includes: sizes, env-layer
     constants and the emitted ``oxc_step`` / ``oxc_observe`` /
     ``oxc_reward`` / ``oxc_reset`` functions.
@@ -320,8 +360,27 @@ def kernel_source(model: Model, hooks: EnvHooks, ctype: str = "float",
     forces (``qf``, nv rows; ``xf``, 6 * nbody rows) -- are pointers into
     the env's column of the (rows, B) input, element i at ``i * ld``, read
     where the step uses them; a function takes them only when the model
-    (or the flag) has them, so every other source is unchanged."""
-    from .emit import PRELUDE, Emitter
+    (or the flag) has them, so every other source is unchanged.
+
+    ``team`` is the number of lanes that run one env (``OXC_TEAM``; the
+    line search's team, see ``scalar_graph._linesearch_scalar``); None
+    takes :func:`team_rule`'s (without a policy) for the kernel's float
+    source and 1 for the host checks' double source, which runs on the
+    host, one lane per env.  A G = 1 source is the one-thread-per-env
+    source, byte for byte."""
+    base = _emit_source(model, hooks, ctype, applied_forces, 1)
+    if team is None:
+        team = team_rule(base) if ctype == "float" else 1
+    if team == 1:
+        return base
+    src = _emit_source(model, hooks, ctype, applied_forces, team)
+    return dataclasses.replace(src, work_step_ops=base.step_ops,
+                               work_step_sfu_ops=base.step_sfu_ops)
+
+
+def _emit_source(model: Model, hooks: EnvHooks, ctype: str,
+                 applied_forces: bool, team: int) -> KernelSource:
+    from .emit import PRELUDE, TEAM_PRELUDE, Emitter
 
     if hooks.observe is None:
         raise ValueError("the rollout kernel needs EnvHooks.observe")
@@ -332,8 +391,8 @@ def kernel_source(model: Model, hooks: EnvHooks, ctype: str = "float",
     mc_arg = f"const {T}* mc, int ld, "
     obs_mc, rew_mc = _hooks_read_mocap(model, hooks)
 
-    em = Emitter(ctype)
-    step = sg.build_step(model, em, want_qacc=spec.carry_qacc)
+    em = Emitter(ctype, team)
+    step = sg.build_step(model, em, want_qacc=spec.carry_qacc, team=team)
     q, v, a = em.load("q", nq), em.load("v", nv), em.load("a", na)
     w, c = em.load("w", nv), em.load("c", nu)
     # a model with equality constraints takes one bool lane per equality
@@ -355,10 +414,12 @@ def kernel_source(model: Model, hooks: EnvHooks, ctype: str = "float",
     eq_arg = "const bool* eq, " if spec.neq else ""
     # the stage-1 qacc the accelerometer family reads at the next step
     qa_arg = f", {T}* qa_out" if spec.carry_qacc else ""
+    # a team's lane index and lane mask
+    team_arg = ", int tl, unsigned tm" if team > 1 else ""
     parts.append(em.function(
         f"void oxc_step(const {T}* q, const {T}* v, const {T}* a, "
         f"const {T}* w, const {T}* c, {eq_arg}{ext_arg}{T}* q_out, "
-        f"{T}* v_out, {T}* a_out, {T}* w_out{qa_arg})"))
+        f"{T}* v_out, {T}* a_out, {T}* w_out{qa_arg}{team_arg})"))
     step_ops, step_sfu = em.ops, em.sfu_ops
 
     eo = Emitter(ctype)
@@ -416,12 +477,16 @@ def kernel_source(model: Model, hooks: EnvHooks, ctype: str = "float",
       + ([f"#define OXC_NMOCAP {spec.nmocap}"] if spec.nmocap else [])
       + (["#define OXC_OBS_MOCAP 1"] if obs_mc else [])
       + (["#define OXC_REW_MOCAP 1"] if rew_mc else [])
-      + (["#define OXC_APPLIED 1"] if spec.applied else []))
+      + (["#define OXC_APPLIED 1"] if spec.applied else [])
+      + ([f"#define OXC_TEAM {team}"] if team > 1 else []))
     text = (f"/* emitted by oxide_control_torch.ops.megakernel.kernel_source"
-            f" ({ctype}): do not edit */\n#pragma once\n" + PRELUDE + "\n"
+            f" ({ctype}): do not edit */\n#pragma once\n" + PRELUDE
+            + (TEAM_PRELUDE if team > 1 else "") + "\n"
             + defines + "\n\n" + "\n".join(parts))
     return KernelSource(text=text, step_ops=step_ops, step_sfu_ops=step_sfu,
-                        reset_ops=ez.ops, env_ops=eo.ops + er.ops)
+                        reset_ops=ez.ops, env_ops=eo.ops + er.ops, team=team,
+                        work_step_ops=step_ops, work_step_sfu_ops=step_sfu,
+                        line_search_terms=em.line_search_terms)
 
 
 # ---------------------------------------------------------------------------
@@ -429,16 +494,17 @@ def kernel_source(model: Model, hooks: EnvHooks, ctype: str = "float",
 # ---------------------------------------------------------------------------
 
 
-def _pack_params(params, dims, device, dtype):
+def _pack_params(params, dims, device, dtype, transpose: bool = False):
     """Flatten (W_1, b_1, ..., W_L, b_L) into one contiguous buffer in the
-    kernel's layout: per layer W (out, in) row-major, then b (out)."""
+    kernel's layout: per layer W (out, in) row-major, then b (out); with
+    ``transpose`` (the layout a team reads) W^T (in, out) row-major."""
     flat = []
     for i in range(len(dims) - 1):
         w, b = params[2 * i], params[2 * i + 1]
         if tuple(w.shape) != (dims[i + 1], dims[i]):
             raise ValueError(f"layer {i}: W shape {tuple(w.shape)}, "
                              f"want {(dims[i + 1], dims[i])}")
-        flat.append(w.reshape(-1))
+        flat.append((w.t() if transpose else w).reshape(-1))
         flat.append(b.reshape(-1))
     return torch.cat(flat).to(device=device, dtype=dtype).contiguous()
 
@@ -545,7 +611,8 @@ class RolloutFn:
 
     def __init__(self, model: Model, batch: int, steps_per_call: int,
                  hooks: EnvHooks, emit_obs: bool = False, policy=None,
-                 fmad: bool = False, applied_forces: bool = False):
+                 fmad: bool = False, applied_forces: bool = False,
+                 team: int | None = None):
         reason = sg.unsupported_reason(model)
         if reason is not None:
             raise ValueError(f"model not kernel-eligible: {reason}")
@@ -560,6 +627,9 @@ class RolloutFn:
         self.emit_obs = emit_obs
         self.policy = policy
         self.fmad = fmad
+        if team is not None and team not in sg.TEAM_SIZES:
+            raise ValueError(f"team must be one of {sg.TEAM_SIZES}")
+        self._team = team
         self.na_rows = max(model.na, 1)
         if policy is not None:
             self.dims = [self.spec.n_obs, *policy.hidden, self.spec.nu]
@@ -574,6 +644,16 @@ class RolloutFn:
         self.launches = 0
         self._lib = None
         self._plain_steps = {}
+
+    @property
+    def team(self) -> int:
+        """Lanes per env of the kernel, and the team order of the plain
+        version's line search (:func:`default_team` unless given)."""
+        if self._team is None:
+            self._team = default_team(self.model, self.hooks,
+                                      self.spec.applied,
+                                      self.policy is not None)
+        return self._team
 
     # ----- shared checks -----
     def _bind(self, args, kw):
@@ -664,7 +744,7 @@ class RolloutFn:
         if self._lib is None:
             from . import build
             src = kernel_source(self.model, self.hooks, "float",
-                                self.spec.applied)
+                                self.spec.applied, self.team)
             self._lib = build.build_rollout_library(src, fmad=self.fmad)
         return self._lib
 
@@ -684,7 +764,7 @@ class RolloutFn:
         out = self._alloc(state[0])
         if self.policy is not None:
             packed = _pack_params(params, self.dims, state[0].device,
-                                  torch.float32)
+                                  torch.float32, transpose=self.team > 1)
             n_params = packed.numel()
         else:
             packed, n_params = None, 0
@@ -736,7 +816,8 @@ class RolloutFn:
         key = (dev, dtype)
         if key not in self._plain_steps:
             bk = sg.TorchBackend(B, dtype, dev)
-            step = sg.build_step(self.model, bk, want_qacc=s.carry_qacc)
+            step = sg.build_step(self.model, bk, want_qacc=s.carry_qacc,
+                                 team=self.team)
             if dev.type == "cuda":
                 step = _GraphedStep(bk, step, s)
             else:
@@ -836,13 +917,18 @@ class RolloutFn:
 def build_rollout(model: Model, batch: int, steps_per_call: int,
                   hooks: EnvHooks, emit_obs: bool = False,
                   policy=None, fmad: bool = False,
-                  applied_forces: bool = False) -> RolloutFn:
+                  applied_forces: bool = False,
+                  team: int | None = None) -> RolloutFn:
     """The K-step rollout function for ``model`` (see :class:`RolloutFn`);
     ``policy`` is an ``MLPPolicy`` whose layer sizes and exploration sigma
     the kernel takes at run time (its weights are call inputs).  ``fmad``
     builds the kernel with FMA contraction: faster, but it no longer
     rounds as the plain version does (see ``ops.build``).
     ``applied_forces`` adds the qfrc and xfrc call inputs
-    (Data.qfrc_applied, xfrc_applied), as the reference's flag does."""
+    (Data.qfrc_applied, xfrc_applied), as the reference's flag does.
+    ``team`` sets the lanes per env (:func:`default_team` by default): the
+    kernel and the plain version both follow its summation order, so
+    they agree bit for bit at every G."""
     return RolloutFn(model, batch, steps_per_call, hooks, emit_obs=emit_obs,
-                     policy=policy, fmad=fmad, applied_forces=applied_forces)
+                     policy=policy, fmad=fmad, applied_forces=applied_forces,
+                     team=team)

@@ -70,6 +70,11 @@ def _is_const(x) -> bool:
     return isinstance(x, (int, float))
 
 
+# team sizes of the line search: G lanes of one warp share one env's
+# dphi sums (see _linesearch_scalar)
+TEAM_SIZES = (1, 2, 4, 8)
+
+
 class TorchBackend:
     """Plain-version backend: every non-constant value is a ``(B,)``
     tensor of one float dtype on one device (bool tensors for masks)."""
@@ -175,6 +180,19 @@ class TorchBackend:
         for _ in range(n):
             carry = [self.full(c) for c in body(list(carry))]
         return carry
+
+    def team_lanes(self, columns):
+        """Each column's G values, one per lane of the team, as one
+        ``(G, B)`` value: every lane's slot at once."""
+        return [torch.stack([self.full(x) for x in col]) for col in columns]
+
+    def team_sum(self, part):
+        """The sum of a ``(G, B)`` value over its lanes as the kernel's
+        butterfly forms it: pairwise, ((p0+p1)+(p2+p3))+..., which IEEE
+        addition's commutativity makes every lane's result."""
+        while part.shape[0] > 1:
+            part = part[0::2] + part[1::2]
+        return part[0]
 
 
 # ---------------------------------------------------------------------------
@@ -1328,7 +1346,7 @@ def _fk_chain(bk, model, mc, sub_mask, qpos, com: bool = True,
     )
 
 
-def build_step(model: Model, bk, want_qacc: bool = False):
+def build_step(model: Model, bk, want_qacc: bool = False, team: int = 1):
     """Build the scalar-graph step on backend ``bk``.
 
     Returns ``step(qpos, qvel, act, warmstart, ctrl, eq_act=None, *,
@@ -1344,7 +1362,11 @@ def build_step(model: Model, bk, want_qacc: bool = False):
     ``want_qacc`` appends the step's stage-1 constrained qacc, the
     acceleration the sensors read (mj_step computes them before it
     integrates; under RK4 that is the first forward pass, not stage 4's).
+    ``team`` is the line search's team size G (see
+    :func:`_linesearch_scalar`): 1, or a power of two up to 8.
     """
+    if team not in TEAM_SIZES:
+        raise ValueError(f"team must be one of {TEAM_SIZES}, not {team}")
     reason = unsupported_reason(model)
     if reason is not None:
         raise ValueError(f"model not in the port's scalar-graph class: "
@@ -1789,7 +1811,7 @@ def build_step(model: Model, bk, want_qacc: bool = False):
         if rows or cones:
             qacc = _newton(bk, model, rows, cones, m_mat, chol_factor,
                            chol_solve, qacc_smooth, qfrc_smooth, warmstart,
-                           nv)
+                           nv, team)
             for r in rows:
                 fr = r["force"]
                 for dof, val in r["J"].items():
@@ -3544,7 +3566,7 @@ def _cone_hess_sg(bk, c, jar3, g=None):
 
 
 def _newton(bk, model, rows, cones, m_mat, chol_factor, chol_solve,
-            qacc_smooth, qfrc_smooth, warmstart, nv):
+            qacc_smooth, qfrc_smooth, warmstart, nv, team=1):
     """Scalar-graph Newton solver with the sort-free line search; the
     ``model.opt.iterations`` iterations run as one ``bk.fori`` carrying
     (x, jar, the cone groups' residuals).  Sets each row's and cone
@@ -3645,7 +3667,7 @@ def _newton(bk, model, rows, cones, m_mat, chol_factor, chol_solve,
             d0 = fma(d0, p[i], sub(mx[i], qfrc_smooth[i]))
             sg = fma(sg, p[i], mp[i])
         alpha = _linesearch_scalar(bk, rows, jar, jp, d0, sg, cones, cjar,
-                                   cjp)
+                                   cjp, team=team)
         x = [fma(x[i], alpha, p[i]) for i in range(nv)]
         jar = [fma(jr, alpha, jpr) for jr, jpr in zip(jar, jp)]
         cjar = [fma(jr, alpha, jpr) for ca, cpa in zip(cjar, cjp)
@@ -3663,12 +3685,154 @@ def _newton(bk, model, rows, cones, m_mat, chol_factor, chol_solve,
     return x
 
 
+# the row kinds in the team deal's slot order; cone groups follow, by key
+_TEAM_ROW_KINDS = ("uni", "fri", "eq")
+
+
+def _row_kind(r) -> str:
+    return r.get("kind") if r.get("kind") in ("fri", "eq") else "uni"
+
+
+def team_deal(rows, cones, team: int):
+    """The team line search's deal of rows and cone groups to lane slots.
+
+    Rows go by kind (``uni``, ``fri``, ``eq``), cone groups by their
+    stacking key (condim, mu, mu0, impratio); the ``n`` members of a kind
+    fill ``R = ceil(n / G)`` slots, member ``s * G + l`` in lane l's slot
+    s.  Returns ``[(kind, members)]`` in slot order, every lane with the
+    same sequence of kinds: ``kind`` a row kind or a cone key, ``members``
+    G indices into ``rows`` or ``cones``, None for a padding slot (a row
+    that does not exist: it contributes exactly +0.0)."""
+    blocks = {}
+    for i, r in enumerate(rows):
+        blocks.setdefault(_row_kind(r), []).append(i)
+    keys = [k for k in _TEAM_ROW_KINDS if k in blocks]
+    for j, c in enumerate(cones):
+        key = (len(c["J"]), c["mu"], c["mu0"], c["impratio"])
+        if key not in blocks:
+            keys.append(key)
+        blocks.setdefault(key, []).append(j)
+    slots = []
+    for key in keys:
+        idx = blocks[key]
+        for s in range(0, len(idx), team):
+            members = idx[s:s + team]
+            slots.append((key, members + [None] * (team - len(members))))
+    return slots
+
+
+def _team_fields(rows, cones, jar, jp, cjar, cjp, kind, members):
+    """``{field: [G lane values]}`` of one slot: the values its dphi term
+    reads, padding slots as a row that does not exist (jar 0, jp 0, D 0,
+    exists false)."""
+    pad = lambda get, z: [z if m is None else get(m) for m in members]
+    if kind in _TEAM_ROW_KINDS:
+        f = dict(jar=pad(lambda i: jar[i], 0.0), jp=pad(lambda i: jp[i], 0.0),
+                 neg_d=pad(lambda i: -rows[i]["D"], 0.0),
+                 exists=pad(lambda i: rows[i]["exists"], False))
+        if kind == "fri":
+            f["fl"] = pad(lambda i: rows[i]["floss"], 0.0)
+        return f
+    f = {"exists": pad(lambda j: cones[j]["exists"], False)}
+    for i in range(kind[0]):
+        f[f"jar{i}"] = pad(lambda j: cjar[j][i], 0.0)
+        f[f"jp{i}"] = pad(lambda j: cjp[j][i], 0.0)
+        f[f"d{i}"] = pad(lambda j: cones[j]["D"][i], 0.0)
+    return f
+
+
+def _team_terms(bk, kind, v, alpha):
+    """The dphi terms ``f * jp`` of one slot (one per row: condim for a
+    cone group) at step ``alpha``; ``v`` holds the slot's lane values."""
+    if kind in _TEAM_ROW_KINDS:
+        jar_a = v["jar"] + alpha * v["jp"]
+        g = v["neg_d"] * jar_a
+        if kind == "uni":
+            f = bk.where(v["exists"] & (jar_a < 0), g, 0.0)
+        elif kind == "eq":
+            f = bk.where(v["exists"], g, 0.0)
+        else:  # fri: clip(-(D jar), -fl, fl) == clip((-D) jar, -fl, fl)
+            f = bk.where(v["exists"], bk.clip(g, -v["fl"], v["fl"]), 0.0)
+        return [f * v["jp"]]
+    dim, mu, mu0, impratio = kind
+    c = dict(J=[None] * dim, D=[v[f"d{i}"] for i in range(dim)], mu=mu,
+             mu0=mu0, impratio=impratio, exists=v["exists"])
+    f, _ = _cone_force_sg(bk, c, [v[f"jar{i}"] + alpha * v[f"jp{i}"]
+                                  for i in range(dim)])
+    return [fi * v[f"jp{i}"] for i, fi in enumerate(f)]
+
+
+def _dphi_team(bk, rows, jar, jp, d0, sg, cones, cjar, cjp, team):
+    """The line search's ``dphi`` of a team of G lanes, per slot: each
+    lane sums its slots' terms in slot order (its partial), the team
+    sums the G partials pairwise (``bk.team_sum``) and
+    ``dphi = (d0 + alpha sg) - total``.  The slot values are taken once
+    per Newton iteration (``bk.team_lanes``).  On the emitter each value
+    is this lane's; on the torch backend a ``(G, B)`` value holds every
+    lane's, so the torch run computes the kernel's partials and tree."""
+    deal = team_deal(rows, cones, team)
+    fields = [_team_fields(rows, cones, jar, jp, cjar, cjp, k, m)
+              for k, m in deal]
+    flat = bk.team_lanes([col for f in fields for col in f.values()])
+    slots, n = [], 0
+    for (kind, _), f in zip(deal, fields):
+        slots.append((kind, dict(zip(f, flat[n:n + len(f)]))))
+        n += len(f)
+
+    def dphi(alpha):
+        part = None
+        for kind, v in slots:
+            for t in _team_terms(bk, kind, v, alpha):
+                part = t if part is None else part + t
+        return (d0 + alpha * sg) - bk.team_sum(part)
+
+    return dphi
+
+
+def _dphi_team_stacked(bk, rows, jar, jp, d0, sg, cones, cjar, cjp, team):
+    """:func:`_dphi_team` on the torch backend from a tenth of the torch
+    calls: the slots of one kind stack as ``(R, G, B)`` and their terms
+    are folded into the partial in the same slot order, so every element
+    goes through the same ops in the same order (bit-identical)."""
+    deal = team_deal(rows, cones, team)
+    blocks = []  # (kind, the members of each of its slots)
+    for kind, members in deal:
+        if not blocks or blocks[-1][0] != kind:
+            blocks.append((kind, []))
+        blocks[-1][1].append(members)
+    stacked = []
+    for kind, members in blocks:
+        fs = [_team_fields(rows, cones, jar, jp, cjar, cjp, kind, m)
+              for m in members]
+        stacked.append((kind, {
+            k: torch.stack(bk.team_lanes([f[k] for f in fs]))
+            for k in fs[0]}))
+
+    def dphi(alpha):
+        part = None
+        for kind, v in stacked:
+            terms = _team_terms(bk, kind, v, alpha)
+            for s in range(terms[0].shape[0]):
+                for t in terms:
+                    part = t[s] if part is None else part + t[s]
+        return (d0 + alpha * sg) - bk.team_sum(part)
+
+    return dphi
+
+
 def _linesearch_scalar(bk, rows, jar, jp, d0, sg, cones=(), cjar=(), cjp=(),
-                       n_grow=12, n_bisect=26):
+                       n_grow=12, n_bisect=26, team=1):
     """Monotone derivative root find: doubling bracket then bisection
     (sort-free), both as ``bk.fori`` loops.  dphi is piecewise linear in
     alpha for the row kinds and curved in the cone groups' zones, which
-    the bracket handles alike."""
+    the bracket handles alike.
+
+    With ``team`` G > 1 a team of G lanes evaluates each dphi: the rows
+    and cone groups are dealt to lane slots (:func:`team_deal`) and the
+    sum over them is taken as G partial sums and a pairwise tree
+    (:func:`_dphi_team`); the grow and bisection decisions read the
+    tree's total, which every lane holds bit for bit.  At G = 1 the sum
+    is the sequential chain of the reference."""
 
     def dphi(alpha):
         # dcost/dalpha per row = -f(jar_a) * jp
@@ -3684,7 +3848,14 @@ def _linesearch_scalar(bk, rows, jar, jp, d0, sg, cones=(), cjar=(), cjp=(),
                 s = s - fi * pi
         return s
 
-    if isinstance(bk, TorchBackend) and (rows or cones):
+    if hasattr(bk, "line_search_terms"):  # the emitter counts them
+        bk.line_search_terms = max(bk.line_search_terms, len(rows) + sum(
+            len(c["J"]) for c in cones))
+    if team > 1 and (rows or cones):
+        team_form = (_dphi_team_stacked if isinstance(bk, TorchBackend)
+                     else _dphi_team)
+        dphi = team_form(bk, rows, jar, jp, d0, sg, cones, cjar, cjp, team)
+    elif isinstance(bk, TorchBackend) and (rows or cones):
         dphi = _dphi_stacked(bk, rows, jar, jp, d0, sg, cones, cjar, cjp)
 
     def grow(c):

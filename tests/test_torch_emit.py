@@ -408,30 +408,32 @@ extern "C" void run_batch(const double* q, const double* v, const double* a,
 # cones, then sensors and the qacc carry, then fluid forces, mocap poses
 # and applied forces) changed no earlier model's kernel.  The three
 # elliptic sources are pinned as of the cone Hessian's one-rounding
-# division of mub2 by D0.
+# division of mub2 by D0.  The sources whose team size is above 1
+# (megakernel.team_rule: 4 or 8 lanes per env) are pinned at that size;
+# those at G = 1 keep their one-thread-per-env source byte for byte.
 EARLIER_SOURCES = {
-    "cheetah/run": "e40d1e0a0c579f25", "walker/walk": "9efbfd70f1491e7b",
+    "cheetah/run": "29622534892d5ba7", "walker/walk": "bd96885f7601f346",
     "cartpole/swingup": "be1ba6dc20524d50",
     "pendulum/swingup": "d7f0fe6c0460f134",
     "humanoid/run": "9a408c8f154d8947", "arm/muscle-wrap": "8540a01de71941f5",
-    "fourbar/equality": "c65fd1d9f7076353",
-    "arms/self-collide": "bc88896155c2c64f",
-    "walker/walk-tendon": "39d1c5edd09aa213",
+    "fourbar/equality": "c45fceb36f47e1cd",
+    "arms/self-collide": "4caeb053282d72de",
+    "walker/walk-tendon": "50cb353367653429",
     "stateful/actuators": "4b55a35a9d39913f", "weld": "c377d519be9dea83",
-    "tendon-equality": "4102536f9dd836dc", "box-pairs": "190fd0cf46bb480b",
-    "plane-shapes": "7bcfdd70bdf37488", "box-stack": "acee84fa680f70ea",
-    "cheetah gauss": "a6038eb82f93e532",
+    "tendon-equality": "1d205d85d18ed32e", "box-pairs": "4d8ddb8eb4da95b2",
+    "plane-shapes": "e4c7f0fb6f4974b7", "box-stack": "acee84fa680f70ea",
+    "cheetah gauss": "9c5b084649a095d2",
     "cable/swing": "3630b1bc3c4ee3e7",
-    "cheetah/run-elliptic": "6ca01b53bc57f2f9",
+    "cheetah/run-elliptic": "8b7f8e33ad432ec1",
     "ball-limit-spring": "cc982416e2865b9b",
     "ball-free-actuators": "178e8c627c2576b3",
-    "weld-ball": "9330091a94e55467", "condim46": "6870e388745c5b0d",
+    "weld-ball": "9330091a94e55467", "condim46": "9e8a391a4788926d",
     "elliptic-condim4": "891fe049dceca13f",
     "elliptic-condim6": "b0496f702c2c2ec0",
-    "walker/walk-tendon-sensors": "fd8a2e32c19c41bd",
+    "walker/walk-tendon-sensors": "5f3b2014656b3509",
     "sensors-all": "b0099d692b878ee2",
-    "cheetah push": "a620462dc980b17f", "fluid-forces": "7245559f973113ce",
-    "mocap-weld": "024656766080884f", "applied-forces": "112c0f9446126193",
+    "cheetah push": "67dc3f92a8a331de", "fluid-forces": "f9d4b6101d41ad3e",
+    "mocap-weld": "ce4bff52350420ff", "applied-forces": "9ddfcba359a209cd",
 }
 
 
