@@ -38,7 +38,31 @@ Phases, each fatal on failure:
    then, outside the count, cheetah-run-push's push check: from one reset
    state and one generator state, one call pushed and one not, and the
    pushed envs must end displaced along their push;
-7. the kernels line (JSON) and the last line (JSON).
+7. general: the general path (``physics.forward`` under
+   ``BatchedEnvironment.step`` and ``jit_rollout``, batched torch ops, no
+   kernel of its own): (a) the reference's hop model, started 2 cm above
+   the floor so that every env lands, at B = 1024, K = 24, through resets
+   and contacts, against the rollout kernel on the same ctrl (f32, the
+   reference's bars: qpos 1e-4, qvel 1e-3, reward 1e-4); (b) cheetah-run,
+   walker-walk-tendon-sensors and cheetah-run-elliptic at B = 256, 10
+   f64 steps from seeded states, against the plain scalar-graph step on
+   the card (qpos under 1e-6, qvel under 1e-4: their 4 Newton iterations
+   do not converge), each with a nudge check for line-search ties, and
+   the walker row at 50 Newton iterations for 5 steps (qpos and qvel
+   under 1e-9); (c) five models outside the kernel class
+   (walker under implicitfast with CG, full implicit, a PGS free body,
+   elliptic condim 3 under CG, the refsite site transmission), 10 f64
+   steps on the card against the port on the CPU (1e-6), then one step
+   captured in a CUDA graph against the eager step (bit for bit); (d) the
+   reference bench's two GENERAL_ALSO rows, cheetah-run-elliptic@4096
+   and walker-walk-tendon-sensors@4096 at K = 50 with uniform actions,
+   through ``jit_rollout`` (one warm-up call with the graph capture, 10
+   timed calls between CUDA events, cut to 3 where the phase would pass
+   ~120 s), then, from one state and generator state, one captured call
+   with a new generator (so a new capture) against one eager ``rollout``
+   call, which is also the eager timing (qpos and reward within 1e-4);
+   a ``general`` JSON line;
+8. the kernels line (JSON) and the last line (JSON).
 
 Parity runs each main-path row at its own B and K; models without a
 bench row at K = 200: pendulum-swingup@1024, walker-walk-tendon@4096
@@ -75,16 +99,30 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from oxide_control_torch import bench_configs, convert, suite
 from oxide_control_torch.api.environment import BatchedEnvironment
 from oxide_control_torch.mjcf.compile import load_model_from_xml
 from oxide_control_torch.model import JointType
 from oxide_control_torch.ops import megakernel as mk
-from oxide_control_torch.parallel.rollout import FastRollout, mocap_rest_pose
+from oxide_control_torch.ops import scalar_graph as sg
+from oxide_control_torch.parallel.rollout import (
+    FastRollout,
+    jit_rollout,
+    mocap_rest_pose,
+    rollout,
+)
+from oxide_control_torch.physics import forward as pfwd
 from oxide_control_torch.policy import MLPPolicy
 from oxide_control_torch.suite import walker
-from oxide_control_torch.suite.common import SensorObsWrapper, asset_path
+from oxide_control_torch.state import make_data, tree_map
+from oxide_control_torch.suite.common import (
+    SensorObsWrapper,
+    asset_path,
+    time_limit_done,
+)
+from oxide_control_torch.utils.divergence import divergence_flags
 
 # two parity models without a bench row.  Filter, filterexact
 # (act-limited) and integrator actuators on a two-link arm over a floor
@@ -1047,6 +1085,542 @@ def bound(fn, built, resets):
         lane_ops=ops, sfu_ops=sfu, bytes=nbytes, resets=resets)
 
 
+# ---------------------------------------------------------------------------
+# the general path (physics.forward through BatchedEnvironment.step and
+# jit_rollout): cross-path checks and the two GENERAL_ALSO rows
+# ---------------------------------------------------------------------------
+
+# the reference's hop model and its task without reset noise
+# (tests/test_megakernel.py:24-68): contacts, a limit, a motor, Newton.
+# The ball starts 2 cm above the floor (the reference's test starts it at
+# 0.35 m, where it never lands within a 15-step episode), so that every
+# env is in contact inside the window
+HOP_XML = """
+<mujoco>
+  <option timestep="0.01" solver="Newton" iterations="4" tolerance="0"/>
+  <worldbody>
+    <geom name="floor" type="plane" size="5 5 .1"/>
+    <body name="ball" pos="0 0 0.17">
+      <joint name="z" type="slide" axis="0 0 1"/>
+      <joint name="tilt" type="hinge" axis="0 1 0" range="-1 1"
+             limited="true"/>
+      <geom name="b" type="sphere" size="0.15" mass="1"/>
+    </body>
+  </worldbody>
+  <actuator>
+    <motor joint="z" gear="10"/>
+  </actuator>
+</mujoco>
+"""
+HOP_B, HOP_K = 1024, 24
+# the general path against the kernel, f32 (tests/test_megakernel.py:109-115)
+HOP_BARS = dict(qpos=1e-4, qvel=1e-3, reward=1e-4)
+# the general path against the plain version, f64
+# (tests/test_scalar_graph.py:47-52), and the card against the CPU
+F64_BAR = 1e-6
+# The f64 rows' qvel bar.  Their models run 4 Newton iterations with
+# tolerance 0, which do not converge: the general path's line search
+# (exact, over the rows' breakpoints, or bisection to its own tolerance)
+# and the plain step's 26-step bisection then end on different iterates,
+# ~1e-6 apart in qvel after one step and up to ~5e-5 over 10 (the
+# reference's two paths differ by as much).  The converged leg below
+# (the walker row at 50 iterations) holds both paths to CONVERGED_BAR.
+F64_QVEL_BAR = 1e-4
+CONVERGED_BAR = 1e-9
+# qpos scaled by 1 + NUDGE in the general path alone must move its qvel
+# by less than NUDGE_BAR: a line-search tie in the window would move it
+# as far as the cross-path error (ROADMAP Queue C)
+NUDGE, NUDGE_BAR = 1e-14, 1e-9
+F64_SEED = 9
+GENERAL_B, GENERAL_K = 4096, 50
+
+
+class HopTask:
+    """Reward clip(qpos[0], 0, 1), episodes of 15 steps, no reset noise."""
+
+    discount = 1.0
+    time_limit = 0.15
+
+    def init_episode(self, model, data, generator):
+        return data
+
+    def observe(self, model, data):
+        return torch.cat([data.qpos, data.qvel], -1)
+
+    def reward(self, model, data, obs, action):
+        return torch.clamp(data.qpos[:, 0], 0.0, 1.0)
+
+    def done(self, model, data, obs):
+        return time_limit_done(data, self.time_limit)
+
+    def kernel_hooks(self, model):
+        return mk.EnvHooks(
+            reward=lambda bk, q, v, c: bk.clip(q[0], 0.0, 1.0),
+            time_limit=self.time_limit, reset_noise=0.0,
+            observe=lambda bk, q, v: list(q) + list(v),
+            n_obs=model.nq + model.nv)
+
+
+# models outside the kernel class (tests/test_golden.py:171-185, 257-276,
+# 327-335 and the refsite model of ROADMAP Queue C), run on the card in
+# f64 against the port on the CPU
+PLANAR_WALKER_XML = """
+<mujoco model="planar_walker">
+  <option timestep="0.002" integrator="implicitfast" solver="CG"
+          iterations="30" tolerance="0"/>
+  <default>
+    <joint damping="0.1" armature="0.01"/>
+    <geom friction="0.7 0.005 0.0001" solref="0.02 1"
+          solimp="0.9 0.95 0.001 0.5 2" contype="0" conaffinity="1"/>
+  </default>
+  <worldbody>
+    <geom name="floor" type="plane" size="10 10 0.1" contype="1"
+          conaffinity="0"/>
+    <body name="torso" pos="0 0 0.7">
+      <joint name="rootx" type="slide" axis="1 0 0" damping="0" armature="0"/>
+      <joint name="rootz" type="slide" axis="0 0 1" damping="0" armature="0"/>
+      <joint name="rooty" type="hinge" axis="0 1 0" damping="0" armature="0"/>
+      <geom name="torso_geom" type="capsule" fromto="0 0 -0.15 0 0 0.15"
+            size="0.05" mass="3"/>
+      <body name="thigh" pos="0 0 -0.15">
+        <joint name="hip" type="hinge" axis="0 1 0" range="-1.0 1.0"/>
+        <geom name="thigh_geom" type="capsule" fromto="0 0 0 0 0 -0.25"
+              size="0.04" mass="1"/>
+        <body name="shin" pos="0 0 -0.25">
+          <joint name="knee" type="hinge" axis="0 1 0" range="-1.5 0.1"/>
+          <geom name="shin_geom" type="capsule" fromto="0 0 0 0 0 -0.25"
+                size="0.03" mass="0.6"/>
+        </body>
+      </body>
+      <body name="thigh2" pos="0 0 -0.15">
+        <joint name="hip2" type="hinge" axis="0 1 0" range="-1.0 1.0"/>
+        <geom name="thigh2_geom" type="capsule" fromto="0 0 0 0 0.02 -0.25"
+              size="0.04" mass="1"/>
+        <body name="shin2" pos="0 0.02 -0.25">
+          <joint name="knee2" type="hinge" axis="0 1 0" range="-1.5 0.1"/>
+          <geom name="shin2_geom" type="capsule" fromto="0 0 0 0 0 -0.25"
+                size="0.03" mass="0.6"/>
+        </body>
+      </body>
+    </body>
+  </worldbody>
+  <actuator>
+    <motor joint="hip" gear="30" ctrlrange="-1 1"/>
+    <motor joint="knee" gear="30" ctrlrange="-1 1"/>
+    <motor joint="hip2" gear="30" ctrlrange="-1 1"/>
+    <motor joint="knee2" gear="30" ctrlrange="-1 1"/>
+  </actuator>
+</mujoco>
+"""
+IMPLICIT_BALL_XML = """
+<mujoco model="ball_pendulum">
+  <option timestep="0.002" integrator="implicit"/>
+  <worldbody>
+    <body name="arm" pos="0 0 1">
+      <joint name="swivel" type="ball" damping="0.05"/>
+      <geom name="arm_geom" type="capsule" fromto="0 0 0 0.05 0.1 -0.4"
+            size="0.02" mass="0.5"/>
+    </body>
+  </worldbody>
+</mujoco>
+"""
+PGS_FREE_XML = """
+<mujoco model="free_body">
+  <option timestep="0.002" solver="PGS" iterations="30" tolerance="0"/>
+  <worldbody>
+    <geom name="floor" type="plane" size="5 5 0.1"/>
+    <body name="ball" pos="0.1 -0.2 0.5">
+      <freejoint name="root"/>
+      <geom name="sphere_geom" type="sphere" size="0.12" mass="0.8"/>
+    </body>
+  </worldbody>
+</mujoco>
+"""
+ELLIPTIC_CG_XML = """
+<mujoco>
+  <option cone="elliptic" impratio="1" solver="CG" iterations="30"
+          tolerance="0" timestep="0.002"/>
+  <worldbody>
+    <geom name="floor" type="plane" size="5 5 .1" friction="0.4 0.1 0.01"/>
+    <body pos="0 0 0.145">
+      <freejoint/>
+      <geom name="ball" type="sphere" size="0.15" mass="1"
+            friction="0.4 0.3 0.05" condim="3"/>
+    </body>
+  </worldbody>
+</mujoco>
+"""
+REFSITE_XML = """
+<mujoco>
+  <worldbody>
+    <geom name="floor" type="plane" size="5 5 .1"/>
+    <body name="a" pos="0 0 1">
+      <joint name="h1" type="hinge" axis="0 1 0"/>
+      <geom type="sphere" size="0.1 0.1 0.1"/>
+      <site name="s1" pos="0.1 0 0"/>
+      <body name="b" pos="0.3 0 0">
+        <joint name="h2" type="hinge" axis="0 1 0"/>
+        <geom type="capsule" size="0.05" fromto="0 0 0 0.2 0 0"/>
+        <site name="s2" pos="0.2 0 0"/>
+      </body>
+    </body>
+  </worldbody>
+  <actuator><general site="s2" refsite="s1" gear="1 0 0 0 0 0"/></actuator>
+</mujoco>
+"""
+# name -> (xml, seeded qpos noise, qvel noise, qpos offsets): the free
+# bodies start in contact
+OUTSIDE_MODELS = {
+    "walker-implicitfast-cg": (PLANAR_WALKER_XML, 0.05, 0.5, {}),
+    "ball-implicit": (IMPLICIT_BALL_XML, 0.3, 3.0, {}),
+    "free-body-pgs": (PGS_FREE_XML, 0.05, 0.5, {2: -0.39}),
+    "elliptic-condim3-cg": (ELLIPTIC_CG_XML, 0.01, 0.5, {2: -0.005}),
+    "refsite": (REFSITE_XML, 0.5, 1.0, {}),
+}
+# the f64 cross-path rows: (name, loader, qpos offsets), from F64_SEED,
+# with the nudge check for line-search ties (ROADMAP Queue C)
+F64_ROWS = (
+    ("cheetah-run", lambda: suite.load_batched(
+        "cheetah", "run", 256, dtype=np.float64), {1: -0.1}),
+    ("walker-walk-tendon-sensors", lambda: bench_configs.load_config(
+        "walker", "walk-tendon-sensors", 256, dtype=np.float64), {0: -0.1}),
+    ("cheetah-run-elliptic", lambda: bench_configs.load_config(
+        "cheetah", "run-elliptic", 256, dtype=np.float64), {1: -0.1}),
+)
+
+
+def seeded_data(model, b, device, dtype, seed, qn, vn, shift):
+    """make_data with qpos0 + U(-qn, qn) (plus ``shift``), qvel U(-vn, vn)
+    and ctrl U(-1, 1), from one numpy seed (the same on every device)."""
+    rng = np.random.default_rng(seed)
+    qpos = np.asarray(model.qpos0, np.float64)[None] + qn * rng.uniform(
+        -1, 1, (b, model.nq))
+    for i, off in shift.items():
+        qpos[:, i] += off
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    return make_data(model, device, dtype, batch=b).replace(
+        qpos=t(qpos), qvel=t(vn * rng.uniform(-1, 1, (b, model.nv))),
+        ctrl=t(rng.uniform(-1, 1, (b, model.nu))))
+
+
+def general_hop_phase(fn):
+    """BatchedEnvironment.step on the card against the rollout kernel, f32,
+    the same ctrl, through resets."""
+    model = fn.model
+    benv = BatchedEnvironment(model, HopTask(), HOP_B)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    data = benv.reset(gen)
+    ctrl = torch.empty((HOP_K, HOP_B, model.nu), device="cuda").uniform_(
+        -1.0, 1.0, generator=gen)
+    state = (data.qpos.T.contiguous(), data.qvel.T.contiguous(),
+             torch.zeros((1, HOP_B), device="cuda"),
+             data.qacc_warmstart.T.contiguous(),
+             data.time[None].contiguous())
+    launches = fn.launches
+    ko = fn(*state, ctrl.permute(0, 2, 1).contiguous(),
+            torch.zeros((1,), dtype=torch.int32, device="cuda"))
+    if fn.launches != launches + 1:
+        raise AssertionError("general hop: the rollout kernel did not run")
+    d, rew, dones = data, torch.zeros(HOP_B, device="cuda"), 0
+    touched = torch.zeros(HOP_B, dtype=torch.bool, device="cuda")
+    contact_steps = 0
+    for k in range(HOP_K):
+        d, ts = benv.step(d, ctrl[k], gen)
+        rew += ts.reward
+        dones += int(ts.done.sum())
+        # the step's contact rows (an env reset at this step shows its
+        # last step's rows in the next one's contact count only)
+        active = d.nefc_active > 0
+        touched |= active
+        contact_steps += int(active.any())
+    torch.cuda.synchronize()
+    errs = dict(qpos=float((ko[0].T - d.qpos).abs().max()),
+                qvel=float((ko[1].T - d.qvel).abs().max()),
+                reward=float((ko[5][0] - rew).abs().max()))
+    n_touched = int(touched.sum())
+    log(f"general hop@{HOP_B} (K={HOP_K}, {dones} resets, {n_touched} envs "
+        f"in contact, contact rows in {contact_steps} steps): general path "
+        "vs rollout kernel, f32: " + ", ".join(
+            f"{k} {v:.3e} (bar {HOP_BARS[k]:g})" for k, v in errs.items()))
+    if dones == 0:
+        raise AssertionError("general hop: no env reset in the window")
+    if n_touched != HOP_B:
+        raise AssertionError(f"general hop: only {n_touched} of {HOP_B} envs "
+                             "touched the floor")
+    for k, v in errs.items():
+        if not v <= HOP_BARS[k]:
+            raise AssertionError(f"general hop: {k} error {v} over "
+                                 f"{HOP_BARS[k]}")
+    return dict(errs, resets=dones, envs_in_contact=n_touched,
+                steps_with_contact=contact_steps)
+
+
+def f64_cross_path(model, b, shift, steps):
+    """``steps`` f64 steps of the general path and of the plain
+    scalar-graph step on the card from one seeded state: the worst qpos
+    and qvel gaps, how far a nudge of qpos moves the general path's qvel,
+    and the active constraint rows summed over the steps."""
+    d = seeded_data(model, b, "cuda", torch.float64, F64_SEED, 0.1, 0.5,
+                    shift)
+    nudged = d.replace(qpos=d.qpos * (1.0 + NUDGE))
+    step = sg.build_step(model, sg.TorchBackend(b, torch.float64, "cuda"))
+    cols = lambda x: list(x.T.unbind(0))
+    q, v, w, c = cols(d.qpos), cols(d.qvel), cols(d.qacc_warmstart), \
+        cols(d.ctrl)
+    a = cols(d.act)
+    worst, rows = dict(qpos=0.0, qvel=0.0, nudge_qvel=0.0), 0
+    for _ in range(steps):
+        q, v, a, w = step(q, v, a, w, c)
+        d = pfwd.step(model, d)
+        nudged = pfwd.step(model, nudged)
+        for k, x, y in (("qpos", torch.stack(q, 1), d.qpos),
+                        ("qvel", torch.stack(v, 1), d.qvel),
+                        ("nudge_qvel", nudged.qvel, d.qvel)):
+            worst[k] = max(worst[k], float((x - y).abs().max()))
+        rows += int(d.nefc_active.sum())
+    return worst, rows
+
+
+def general_f64_phase():
+    """The general step against the plain scalar-graph step, both f64 on
+    the card, 10 steps from seeded states (and the walker row's converged
+    leg: 50 Newton iterations, 5 steps)."""
+    out = {}
+    for name, load, shift in F64_ROWS:
+        benv = load()
+        legs = [(name, benv.model, 10, dict(qpos=F64_BAR,
+                                            qvel=F64_QVEL_BAR))]
+        if name.startswith("walker"):
+            legs.append((f"{name} converged", benv.model.replace(
+                opt=dataclasses.replace(benv.model.opt, iterations=50)), 5,
+                dict(qpos=CONVERGED_BAR, qvel=CONVERGED_BAR)))
+        for leg, model, steps, bars in legs:
+            worst, rows = f64_cross_path(model, benv.num_envs, shift, steps)
+            torch.cuda.synchronize()
+            log(f"general f64 {leg}@{benv.num_envs} ({steps} steps, "
+                f"{model.opt.iterations} Newton iterations): general path "
+                f"vs plain scalar-graph step on the card: qpos "
+                f"{worst['qpos']:.3e} (bar {bars['qpos']:g}), qvel "
+                f"{worst['qvel']:.3e} (bar {bars['qvel']:g}); the nudge "
+                f"moves qvel {worst['nudge_qvel']:.3e} (bar {NUDGE_BAR:g}); "
+                f"active constraint rows {rows}")
+            for k, bar in bars.items():
+                if not worst[k] < bar:
+                    raise AssertionError(f"general f64 {leg}: {k} error "
+                                         f"{worst[k]} over {bar}")
+            if not worst["nudge_qvel"] < NUDGE_BAR:
+                raise AssertionError(f"general f64 {leg}: a nudge of "
+                                     f"{NUDGE} moves qvel "
+                                     f"{worst['nudge_qvel']} (a tie)")
+            out[leg] = dict(worst, constraint_rows=rows, steps=steps,
+                            iterations=model.opt.iterations)
+    return out
+
+
+def captured_step_gap(model, d):
+    """One general step captured in a CUDA graph and replayed, against
+    the same step run eagerly from ``d``: the worst qpos/qvel gap (the
+    dense solves of every solver and integrator under capture)."""
+    static = tree_map(lambda x: x.clone(), d)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        pfwd.step(model, static)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = pfwd.step(model, static)
+    graph.replay()
+    eager = pfwd.step(model, d)
+    torch.cuda.synchronize()
+    return max(float((out.qpos - eager.qpos).abs().max()),
+               float((out.qvel - eager.qvel).abs().max()))
+
+
+def general_outside_phase():
+    """Models outside the kernel class, 10 f64 steps on the card against
+    the same steps of the port on the CPU, and one more step on the card
+    captured in a CUDA graph against the eager step (bit for bit)."""
+    out = {}
+    for name, (xml, qn, vn, shift) in OUTSIDE_MODELS.items():
+        model = load_model_from_xml(xml, np.float64)
+        if sg.unsupported_reason(model) is None:
+            raise AssertionError(f"{name}: the kernel admits the model")
+        ds = [seeded_data(model, 64, dev, torch.float64, 13, qn, vn, shift)
+              for dev in ("cuda", "cpu")]
+        for _ in range(10):
+            ds = [pfwd.step(model, d) for d in ds]
+        torch.cuda.synchronize()
+        errs = {k: float((getattr(ds[0], k).cpu() - getattr(ds[1], k)).abs()
+                         .max()) for k in ("qpos", "qvel")}
+        errs["captured_vs_eager"] = captured_step_gap(model, ds[0])
+        log(f"general outside the kernel class: {name} (10 f64 steps, B=64): "
+            f"card vs CPU qpos {errs['qpos']:.3e}, qvel {errs['qvel']:.3e} "
+            f"(bar {F64_BAR:g}), solver iterations "
+            f"{float(ds[0].solver_niter.double().mean()):.2f}; a captured "
+            f"step vs the eager step {errs['captured_vs_eager']:.3e} "
+            "(bar 0)")
+        for k in ("qpos", "qvel"):
+            if not errs[k] < F64_BAR:
+                raise AssertionError(f"{name}: card vs CPU {k} {errs[k]}")
+        if errs["captured_vs_eager"] != 0.0:
+            raise AssertionError(f"{name}: the captured step parts from the "
+                                 f"eager one by {errs['captured_vs_eager']}")
+        out[name] = errs
+    return out
+
+
+class OpCount(TorchDispatchMode):
+    """Counts torch operator calls (views included) by the innermost
+    stage on ``stack``."""
+
+    def __init__(self):
+        super().__init__()
+        self.stack = ["other"]
+        self.by = {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.by[self.stack[-1]] = self.by.get(self.stack[-1], 0) + 1
+        return func(*args, **(kwargs or {}))
+
+
+def count_step_ops(dom, task):
+    """Torch operator calls of one general-path env step (the ops a
+    captured step replays), by stage, counted on the CPU at B = 4: the
+    count does not depend on B."""
+    from oxide_control_torch.physics import constraint, forward
+
+    benv = bench_configs.load_config(dom, task, 4, device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    data = benv.reset(gen)
+    counter = OpCount()
+    stages = ((forward, "fwd_position", "position"),
+              (forward, "fwd_velocity", "velocity"),
+              (constraint, "_linesearch", "line search"),
+              (constraint, "fwd_constraint", "constraint"),
+              (forward._integrate, "euler", "integrator"),
+              (benv, "_reset_one", "auto-reset"))
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in stages]
+
+    def wrap(fn, stage):
+        def wrapped(*a, **k):
+            counter.stack.append(stage)
+            try:
+                return fn(*a, **k)
+            finally:
+                counter.stack.pop()
+        return wrapped
+
+    try:
+        for (mod, name, fn), (_, _, stage) in zip(saved, stages):
+            setattr(mod, name, wrap(fn, stage))
+        with counter:
+            action = torch.empty((4, benv.model.nu)).uniform_(
+                -1.0, 1.0, generator=gen)
+            benv.step(data, action, gen)
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    return dict(total=sum(counter.by.values()), **counter.by)
+
+
+def general_rows_phase(rows, smi):
+    """The two GENERAL_ALSO rows at B = 4096, K = 50, f32, through
+    jit_rollout (captured) and rollout (eager), timed as bench_general
+    times them: one warm-up call, then the timed calls between CUDA
+    events after a synchronize."""
+    out = {}
+    t_phase = time.perf_counter()
+    for row, (dom, task) in (
+            ("cheetah-run-elliptic@4096", ("cheetah", "run-elliptic")),
+            ("walker-walk-tendon-sensors@4096",
+             ("walker", "walk-tendon-sensors"))):
+        benv = bench_configs.load_config(dom, task, GENERAL_B)
+        gen = torch.Generator(device="cuda").manual_seed(4)
+        data = benv.reset(gen)
+        jr = jit_rollout(benv, GENERAL_K)
+        t_warm = time.perf_counter()
+        data, (rew, dones), _ = jr(data, gen)  # warm-up with the capture
+        torch.cuda.synchronize()
+        call_s = time.perf_counter() - t_warm - jr.capture_s
+        # ten timed calls, cut to 3 where the phase would pass ~120 s
+        n = N_TIMED
+        if time.perf_counter() - t_phase + 12 * call_s > 100:
+            n = 3
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            data, (rew, dones), _ = jr(data, gen)
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / n
+        if not bool(torch.isfinite(rew).all()):
+            raise AssertionError(f"general {row}: non-finite rewards")
+        stats = dict(
+            solver_niter_mean=float(data.solver_niter.double().mean()),
+            solver_gradnorm_mean=float(data.solver_gradnorm.double()
+                                       .mean()),
+            diverged_envs=int(divergence_flags(benv.model, data).sum()))
+        capture_s = jr.capture_s
+        # the captured call against one eager call (timed) from the same
+        # state and generator state; the new generator makes jit_rollout
+        # capture the step again for it
+        start_data = tree_map(lambda x: x.clone(), data)
+        gen2 = torch.Generator(device="cuda").manual_seed(5)
+        g_state = gen2.get_state()
+        got, (rew_j, _), _ = jr(tree_map(lambda x: x.clone(), start_data),
+                                gen2)
+        if jr.generator is not gen2:
+            raise AssertionError(f"general {row}: no capture for a new "
+                                 "generator")
+        qpos_j, rew_j = got.qpos.clone(), rew_j.clone()
+        gen2.set_state(g_state)
+        start.record()
+        data, (rew_e, _), _ = rollout(benv, start_data, gen2, GENERAL_K)
+        end.record()
+        torch.cuda.synchronize()
+        eager_ms = start.elapsed_time(end)
+        agree = dict(qpos=float((qpos_j - data.qpos).abs().max()),
+                     reward=float((rew_j - rew_e).abs().max()))
+        agree["bit_identical"] = bool(torch.equal(qpos_j, data.qpos)
+                                      and torch.equal(rew_j, rew_e))
+        log(f"general {row}: jit_rollout (captured again for a new "
+            f"generator) vs eager rollout, {GENERAL_K} steps from one state "
+            f"and generator state: qpos {agree['qpos']:.3e} (bar "
+            f"{HOP_BARS['qpos']:g}), reward {agree['reward']:.3e} (bar "
+            f"{HOP_BARS['reward']:g}), bit-identical "
+            f"{agree['bit_identical']}")
+        for k in ("qpos", "reward"):
+            if not agree[k] <= HOP_BARS[k]:
+                raise AssertionError(f"general {row}: captured vs eager {k} "
+                                     f"{agree[k]} over {HOP_BARS[k]}")
+        env_steps = GENERAL_B * GENERAL_K
+        ops = count_step_ops(dom, task)
+        out[row] = dict(
+            torch_ops_per_step=ops,
+            us_per_op=ms * 1e3 / GENERAL_K / ops["total"],
+            env_steps_per_s=env_steps / (ms * 1e-3), call_ms=ms,
+            timed_calls=n, eager_env_steps_per_s=env_steps
+            / (eager_ms * 1e-3), eager_call_ms=eager_ms,
+            capture_s=capture_s, captured_vs_eager=agree,
+            kernel_env_steps_per_s=rows[row]["rate"], **stats)
+        log(f"general {row} (K={GENERAL_K}): captured {ms:.3f} ms per call "
+            f"({out[row]['env_steps_per_s']:.6e} env-steps/s, {n} timed "
+            f"calls), eager {eager_ms:.3f} ms "
+            f"({out[row]['eager_env_steps_per_s']:.6e}), capture "
+            f"{capture_s:.2f} s, solver iterations "
+            f"{stats['solver_niter_mean']:.3f}, diverged "
+            f"{stats['diverged_envs']}; the kernel row "
+            f"{rows[row]['rate']:.6e} env-steps/s; {ops['total']} torch ops "
+            f"per step ({out[row]['us_per_op']:.3f} us each captured; line "
+            f"search {ops.get('line search', 0)}, auto-reset "
+            f"{ops.get('auto-reset', 0)})")
+    return dict(rows=out, card=smi,
+                timed_calls_cut=any(r["timed_calls"] < N_TIMED
+                                    for r in out.values()))
+
+
 def main():
     name, smi = device_phase()
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1086,10 +1660,15 @@ def main():
         roll.kernel.hooks, emit_obs=roll.collect, policy=roll.policy,
         team=1) for row, roll in rolls.items() if row in SOLO_ROWS}
 
+    hop_model = load_model_from_xml(HOP_XML, np.float32)
+    hop = mk.build_rollout(hop_model, HOP_B, HOP_K,
+                           HopTask().kernel_hooks(hop_model))
+
     t_build = time.perf_counter()
     pool, futures = start_builds(
         {**{label: fn for label, (_, fn, _) in modes.items()}, "fmad": fma,
-         **{f"{row} G=1": fn for row, fn in solo.items()}})
+         **{f"{row} G=1": fn for row, fn in solo.items()},
+         "general hop": hop})
     philox_phase()
     t = time.perf_counter()
     plain = plain_phase(modes)
@@ -1102,6 +1681,13 @@ def main():
     t = time.perf_counter()
     rows = main_path_phase(rolls)
     log(f"phase main path: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    hop_errs = general_hop_phase(hop)
+    f64 = general_f64_phase()
+    outside = general_outside_phase()
+    general = general_rows_phase(rows, smi)
+    general.update(hop=hop_errs, f64=f64, outside=outside)
+    log(f"phase general: {time.perf_counter() - t:.1f} s")
 
     kernels = []
     for row, roll in rolls.items():
@@ -1130,6 +1716,7 @@ def main():
             f"{b_ms:.4f} ms ({by}), plain version "
             f"{plain[row]['plain_ms']:.1f} ms per call, {work}")
     log(f"card: {smi}; whole run {time.perf_counter() - T0:.1f} s")
+    print(json.dumps({"general": general}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -25,7 +25,8 @@ from .api.environment import BatchedEnvironment
 from .mjcf.compile import load_model_from_xml
 from .model import ConeType, Model
 from .state import Data
-from .suite.common import SensorObsWrapper, asset_path, uniform
+from .suite.common import (SensorObsWrapper, asset_path, time_limit_done,
+                           uniform)
 
 # bench.py:311-331: two arms on hinges, children of the world, whose
 # capsules and tip spheres collide with each other and the floor
@@ -150,6 +151,15 @@ class BenchTask:
         noise = 0.05 * uniform(generator, -1.0, 1.0, qpos.shape, qpos.dtype,
                                qpos.device)
         return data.replace(qpos=qpos + noise)
+
+    def observe(self, model: Model, data: Data) -> torch.Tensor:
+        return torch.cat([data.qpos, data.qvel], -1)
+
+    def reward(self, model: Model, data: Data, obs, action):
+        return torch.clamp(data.qvel[:, 0], 0.0, 1.0)
+
+    def done(self, model: Model, data: Data, obs):
+        return time_limit_done(data, self.time_limit)
 
     def kernel_hooks(self, model: Model):
         from .ops.megakernel import EnvHooks

@@ -1,7 +1,12 @@
-"""K environment steps per GPU call through the rollout kernel.
+"""Rollouts: K lockstep env steps per call, on the general path or in the
+rollout kernel.
 
-The port of ``oxide_control_tpu/parallel/rollout.py:74-372`` on one GPU
-(the env-axis mesh is ROADMAP Queue A item 13): ``FastRollout`` packs the
+The port of ``oxide_control_tpu/parallel/rollout.py`` on one GPU (the
+env-axis mesh is ROADMAP Queue A item 13).  ``rollout`` runs K steps of
+``BatchedEnvironment.step`` eagerly; ``jit_rollout`` is its analog of
+``jax.jit`` with donated state: on the card it captures one step (policy,
+physics, task, auto-reset) in a ``torch.cuda.CUDAGraph`` over static state
+buffers and replays it K times per call.  ``FastRollout`` packs the
 batch into the kernel's coordinate-major state and runs
 ``ops.megakernel.build_rollout`` once per call, with actions either drawn
 uniformly on the device (outside the kernel) or produced by an in-kernel
@@ -11,14 +16,132 @@ rows and, with ``applied_forces``, the applied forces of every env.
 
 from __future__ import annotations
 
-import numpy as np
+import time
+
 import torch
 
 from .. import convert
 from ..api.environment import BatchedEnvironment
 from ..ops import megakernel as mk
 from ..ops import scalar_graph as sg
-from ..state import Data
+from ..state import Data, mocap_rest_pose, tree_map
+
+
+def uniform_policy(benv: BatchedEnvironment):
+    """The default policy: actions uniform in [-1, 1), drawn from the
+    caller's generator."""
+    shape = (benv.num_envs, benv.model.nu)
+
+    def policy(generator, obs):
+        a = torch.empty(shape, dtype=benv.dtype, device=benv.device)
+        return a.uniform_(-1.0, 1.0, generator=generator)
+
+    return policy
+
+
+def rollout(benv: BatchedEnvironment, data: Data,
+            generator: torch.Generator, num_steps: int, policy=None):
+    """``num_steps`` lockstep steps of ``benv.step`` -> ``(final_data,
+    (rewards (K, B), dones (K, B)), mean_return)``.  ``policy(generator,
+    obs) -> action (B, nu)`` defaults to uniform actions in [-1, 1)."""
+    policy = policy or uniform_policy(benv)
+    obs = benv.observe(data)
+    rewards, dones = [], []
+    for _ in range(num_steps):
+        data, ts = benv.step(data, policy(generator, obs), generator)
+        obs = ts.observation
+        rewards.append(ts.reward)
+        dones.append(ts.done)
+    rewards = torch.stack(rewards)
+    return data, (rewards, torch.stack(dones)), rewards.sum(0).mean()
+
+
+class JitRollout:
+    """``rollout`` with the state donated: each call consumes ``data`` and
+    returns the new state.  On a CUDA batch the first call warms one step
+    up eagerly (on a copy of the state, the generator restored after it)
+    and captures the step in a CUDA graph, the generator registered with
+    the graph; every call then copies ``data`` into the graph's static
+    state, replays the step K times and returns the static state (valid
+    until the next call).  A graph draws from the one generator it was
+    captured with, so a call with another generator captures the step
+    again for that one.  On the CPU every call runs ``rollout``."""
+
+    def __init__(self, benv: BatchedEnvironment, num_steps: int,
+                 policy=None):
+        self.benv = benv
+        self.num_steps = num_steps
+        self.policy = policy or uniform_policy(benv)
+        self.graph = None
+        self.generator = None
+        self.capture_s = None
+
+    def _body(self, generator):
+        st = self._static
+        action = self.policy(generator, st["obs"])
+        data, ts = self.benv.step(st["data"], action, generator)
+        tree_map(lambda dst, src: dst.copy_(src), st["data"], data)
+        st["obs"].copy_(ts.observation)
+        st["reward"].copy_(ts.reward)
+        st["done"].copy_(ts.done)
+
+    def _capture(self, data, generator):
+        t0 = time.perf_counter()
+        self._static = {
+            "data": tree_map(lambda x: x.clone(), data),
+            "obs": self.benv.observe(data).clone(),
+            "reward": torch.zeros_like(data.time),
+            "done": torch.zeros_like(data.time, dtype=torch.bool),
+        }
+        graph = torch.cuda.CUDAGraph()
+        if not hasattr(graph, "register_generator_state"):
+            raise RuntimeError(
+                "this torch's CUDAGraph cannot register a generator "
+                f"(torch {torch.__version__}): jit_rollout needs it")
+        graph.register_generator_state(generator)
+        saved = tree_map(lambda x: x.clone(), self._static["data"])
+        gstate = generator.get_state()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            self._body(generator)
+        torch.cuda.current_stream().wait_stream(side)
+        tree_map(lambda dst, src: dst.copy_(src), self._static["data"], saved)
+        generator.set_state(gstate)
+        with torch.cuda.graph(graph):
+            self._body(generator)
+        torch.cuda.synchronize()
+        self.graph = graph
+        self.generator = generator
+        self.capture_s = time.perf_counter() - t0
+
+    def __call__(self, data: Data, generator: torch.Generator):
+        if data.qpos.device.type != "cuda":
+            return rollout(self.benv, data, generator, self.num_steps,
+                           self.policy)
+        if self.graph is None or generator is not self.generator:
+            self._capture(data, generator)
+        st = self._static
+        if data is not st["data"]:
+            tree_map(lambda dst, src: dst.copy_(src), st["data"], data)
+            st["obs"].copy_(self.benv.observe(data))
+        k = self.num_steps
+        rewards = torch.empty((k,) + st["reward"].shape,
+                              dtype=st["reward"].dtype,
+                              device=data.qpos.device)
+        dones = torch.empty((k,) + st["done"].shape, dtype=torch.bool,
+                            device=data.qpos.device)
+        for i in range(k):
+            self.graph.replay()
+            rewards[i].copy_(st["reward"])
+            dones[i].copy_(st["done"])
+        return st["data"], (rewards, dones), rewards.sum(0).mean()
+
+
+def jit_rollout(benv: BatchedEnvironment, num_steps: int, policy=None):
+    """A :class:`JitRollout` of ``num_steps`` steps (the analog of
+    ``jax.jit(rollout)`` with donated state)."""
+    return JitRollout(benv, num_steps, policy)
 
 
 def unsupported_reason(benv: BatchedEnvironment) -> str | None:
@@ -42,14 +165,6 @@ def fast_rollout_supported(benv: BatchedEnvironment) -> bool:
     """True if (model, task) qualify for the rollout kernel (see
     :func:`unsupported_reason`)."""
     return unsupported_reason(benv) is None
-
-
-def mocap_rest_pose(model):
-    """(pos (nmocap, 3), quat (nmocap, 4)): the mocap bodies' rest poses,
-    their body_pos and body_quat in mocap order (Data.mocap_pos/quat at
-    reset)."""
-    ids = np.argsort(model.body_mocapid)[model.nbody - model.nmocap:]
-    return np.asarray(model.body_pos)[ids], np.asarray(model.body_quat)[ids]
 
 
 class Trajectory:
@@ -94,9 +209,10 @@ class FastRollout:
                  applied_forces: bool = False):
         reason = unsupported_reason(benv)
         if reason is not None:
-            # there is no general path to fall back to yet (ROADMAP Queue A
-            # item 11)
-            raise ValueError(f"model/task not kernel-eligible: {reason}")
+            # the caller chooses the general path (jit_rollout), as the
+            # reference leaves that choice to fast_rollout_supported's caller
+            raise ValueError(f"model/task not kernel-eligible: {reason}; "
+                             "use jit_rollout for the general path")
         model = benv.model
         self.benv = benv
         self.device = benv.device

@@ -10,7 +10,7 @@ import torch
 from ..model import Model
 from ..state import Data
 from . import rewards
-from .common import load_asset, normal, uniform
+from .common import load_asset, normal, time_limit_done, uniform
 
 _TIME_LIMIT = 10.0
 
@@ -47,6 +47,29 @@ class _Cartpole:
                                            dt, dev)
         qvel = 0.01 * normal(generator, data.qvel.shape, dt, dev)
         return data.replace(qpos=qpos, qvel=qvel)
+
+    def observe(self, model: Model, data: Data) -> torch.Tensor:
+        """[x, cos(theta), sin(theta)] and qvel."""
+        theta = data.qpos[:, self._hinge]
+        return torch.cat([torch.stack([data.qpos[:, self._slider],
+                                       torch.cos(theta), torch.sin(theta)],
+                                      -1), data.qvel], -1)
+
+    def reward(self, model: Model, data: Data, obs, action):
+        upright = (obs[:, 1] + 1.0) / 2.0
+        centered = (1.0 + rewards.tolerance(None, obs[:, 0],
+                                            margin=2.0)) / 2.0
+        action = torch.as_tensor(action, dtype=data.qpos.dtype,
+                                 device=data.qpos.device)
+        small_control = (4.0 + rewards.tolerance(
+            None, action.reshape(action.shape[0], -1)[:, 0], margin=1.0,
+            value_at_margin=0.0, sigmoid="quadratic")) / 5.0
+        small_velocity = (1.0 + rewards.tolerance(None, data.qvel[:, 1],
+                                                  margin=5.0)) / 2.0
+        return upright * small_control * small_velocity * centered
+
+    def done(self, model: Model, data: Data, obs):
+        return time_limit_done(data, self.time_limit)
 
     def kernel_hooks(self, model: Model):
         """In-kernel env layer (ops/megakernel.py): the reward reads

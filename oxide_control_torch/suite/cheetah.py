@@ -7,7 +7,8 @@ import torch
 
 from ..model import Model
 from ..state import Data
-from .common import load_asset
+from . import rewards
+from .common import load_asset, time_limit_done
 
 _RUN_SPEED = 10.0
 _TIME_LIMIT = 10.0
@@ -33,6 +34,18 @@ class Run:
         noise = 0.1 * noise
         noise[..., :3] = 0.0  # keep root pose
         return data.replace(qpos=qpos + noise)
+
+    def observe(self, model: Model, data: Data) -> torch.Tensor:
+        """qpos[1:] and qvel: rootx is translation-invariant."""
+        return torch.cat([data.qpos[:, 1:], data.qvel], -1)
+
+    def reward(self, model: Model, data: Data, obs, action):
+        return rewards.tolerance(
+            None, data.qvel[:, 0], bounds=(_RUN_SPEED, float("inf")),
+            margin=_RUN_SPEED, value_at_margin=0.0, sigmoid="linear")
+
+    def done(self, model: Model, data: Data, obs):
+        return time_limit_done(data, self.time_limit)
 
     def kernel_hooks(self, model: Model):
         """In-kernel env layer: reward, observation and reset of this

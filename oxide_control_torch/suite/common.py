@@ -72,13 +72,18 @@ def randomize_limited_joints(model: Model, qpos: torch.Tensor,
     return qpos
 
 
+def time_limit_done(data, time_limit: float) -> torch.Tensor:
+    """(B,) bool: the episode's time limit is reached."""
+    return data.time > time_limit - 1e-6
+
+
 class SensorObsWrapper:
     """Task wrapper that appends the model's sensordata to the
-    observation: in the rollout kernel, the sensor rows computed in the
-    kernel at the pre-step state (``EnvHooks.needs_sensors``).  The port
-    of the reference's ``suite/common.py:SensorObsWrapper``; its
-    general-path half (``observe(model, data)`` on ``data.sensordata``)
-    comes with ROADMAP Queue A item 11.
+    observation on both paths: ``data.sensordata`` (refreshed after each
+    step by the env layer) on the general path, and in the rollout kernel
+    the sensor rows computed at the pre-step state
+    (``EnvHooks.needs_sensors``).  The port of the reference's
+    ``suite/common.py:SensorObsWrapper``.
 
     The base task must have ``kernel_hooks``; every sensor of the model
     must be in the kernel family (``scalar_graph.sensors_supported``), or
@@ -89,6 +94,10 @@ class SensorObsWrapper:
 
     def __getattr__(self, name):
         return getattr(self._base, name)
+
+    def observe(self, model: Model, data) -> torch.Tensor:
+        return torch.cat([self._base.observe(model, data), data.sensordata],
+                         -1)
 
     def kernel_hooks(self, model: Model):
         base = self._base.kernel_hooks(model)

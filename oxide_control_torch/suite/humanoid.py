@@ -11,7 +11,7 @@ from ..model import Model
 from ..ops.scalar_graph import sum_scalars
 from ..state import Data
 from . import rewards
-from .common import load_asset, normal
+from .common import load_asset, normal, time_limit_done
 
 _STAND_HEIGHT = 1.4
 _WALK_SPEED = 1.0
@@ -43,6 +43,38 @@ class _Humanoid:
         qvel = 0.01 * normal(generator, data.qvel.shape, data.qvel.dtype,
                              data.qvel.device)
         return data.replace(qpos=data.qpos + noise, qvel=qvel)
+
+    def observe(self, model: Model, data: Data) -> torch.Tensor:
+        """qpos[2:] and qvel: root x/y are translation-invariant."""
+        return torch.cat([data.qpos[:, 2:], data.qvel], -1)
+
+    def reward(self, model: Model, data: Data, obs, action):
+        standing = rewards.tolerance(
+            None, data.xpos[:, self._head, 2],
+            bounds=(_STAND_HEIGHT, math.inf), margin=_STAND_HEIGHT / 4)
+        upright = rewards.tolerance(
+            None, data.xmat[:, self._torso, 2, 2], bounds=(0.9, math.inf),
+            margin=1.9, value_at_margin=0.0, sigmoid="linear")
+        stand_reward = standing * upright
+        action = torch.as_tensor(action, dtype=data.qpos.dtype,
+                                 device=data.qpos.device)
+        small_control = rewards.tolerance(
+            None, action, margin=1.0, value_at_margin=0.0,
+            sigmoid="quadratic").mean(-1)
+        small_control = (4.0 + small_control) / 5.0
+        if self.move_speed == 0:
+            dont_move = rewards.tolerance(None, data.qvel[:, 0:2],
+                                          margin=2.0).mean(-1)
+            return small_control * stand_reward * dont_move
+        horiz = torch.sqrt((data.qvel[:, 0:2] ** 2).sum(-1))
+        move = rewards.tolerance(
+            None, horiz, bounds=(self.move_speed, math.inf),
+            margin=self.move_speed, value_at_margin=0.0, sigmoid="linear")
+        move = (5.0 * move + 1.0) / 6.0
+        return small_control * stand_reward * move
+
+    def done(self, model: Model, data: Data, obs):
+        return time_limit_done(data, self.time_limit)
 
     def kernel_hooks(self, model: Model):
         """In-kernel env layer (ops/megakernel.py); resets follow

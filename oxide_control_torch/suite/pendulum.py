@@ -10,7 +10,7 @@ import torch
 from ..model import Model
 from ..state import Data
 from . import rewards
-from .common import load_asset, uniform
+from .common import load_asset, time_limit_done, uniform
 
 _TIME_LIMIT = 20.0
 
@@ -33,6 +33,19 @@ class SwingUp:
             generator, -math.pi, math.pi, qpos.shape[:1], qpos.dtype,
             qpos.device)
         return data.replace(qpos=qpos)
+
+    def observe(self, model: Model, data: Data) -> torch.Tensor:
+        """[cos(theta), sin(theta), qvel[0]]."""
+        theta = data.qpos[:, self._hinge_qadr]
+        return torch.stack([torch.cos(theta), torch.sin(theta),
+                            data.qvel[:, 0]], -1)
+
+    def reward(self, model: Model, data: Data, obs, action):
+        return rewards.tolerance(None, obs[:, 0], bounds=(0.95, 1.0),
+                                 margin=1.95)
+
+    def done(self, model: Model, data: Data, obs):
+        return time_limit_done(data, self.time_limit)
 
     def kernel_hooks(self, model: Model):
         """In-kernel env layer (ops/megakernel.py): reward =

@@ -4,33 +4,18 @@ The port of ``oxide_control_tpu/suite/rewards.py``.  Every function takes
 the backend ``bk`` first, as the kernel hooks do, so one reward expression
 runs in the plain version (``scalar_graph.TorchBackend``) and is emitted
 into the CUDA kernel (``ops.emit.Emitter``); ``bk=None`` evaluates it on
-plain tensors of any shape.  Scales are folded in double with ``math``,
-and squares are written as products, so the plain version and the kernel
-evaluate the same operations.
+plain tensors of any shape (``physics.maths.TensorOps``).  Scales are
+folded in double with ``math``, and squares are written as products, so
+the plain version and the kernel evaluate the same operations.
 """
 
 from __future__ import annotations
 
 import math
 
-import torch
+from ..physics.maths import TensorOps
 
 _DEFAULT_VALUE_AT_MARGIN = 0.1
-
-
-class _Tensors:
-    """The backend ops the rewards use, on plain tensors of any shape."""
-
-    @staticmethod
-    def where(c, a, b):
-        if isinstance(c, bool):
-            return a if c else b
-        return torch.where(c, a, b)
-
-    abs = staticmethod(torch.abs)
-    cos = staticmethod(torch.cos)
-    exp = staticmethod(torch.exp)
-    tanh = staticmethod(torch.tanh)
 
 
 def _sigmoid(bk, x, value_at_1: float, sigmoid: str):
@@ -75,7 +60,7 @@ def tolerance(bk, x, bounds=(0.0, 0.0), margin: float = 0.0,
               value_at_margin: float = _DEFAULT_VALUE_AT_MARGIN):
     """1 when ``x`` is within ``bounds``, decaying to 0 outside through
     ``sigmoid`` (value ``value_at_margin`` at distance ``margin``)."""
-    bk = _Tensors if bk is None else bk
+    bk = TensorOps if bk is None else bk
     lower, upper = (float(b) for b in bounds)
     if lower > upper:
         raise ValueError("lower bound must be <= upper bound")

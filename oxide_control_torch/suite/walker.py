@@ -10,7 +10,8 @@ import torch
 from ..model import Model
 from ..state import Data
 from . import rewards
-from .common import load_asset, normal, randomize_limited_joints
+from .common import (load_asset, normal, randomize_limited_joints,
+                     time_limit_done)
 
 _STAND_HEIGHT = 1.2
 _WALK_SPEED = 1.0
@@ -40,6 +41,28 @@ class _Walker:
         qvel = 0.01 * normal(generator, data.qvel.shape, data.qvel.dtype,
                              data.qvel.device)
         return data.replace(qpos=qpos, qvel=qvel)
+
+    def observe(self, model: Model, data: Data) -> torch.Tensor:
+        """[1.3 + rootz], qpos[2:] and qvel."""
+        return torch.cat([data.qpos[:, :1] + 1.3, data.qpos[:, 2:],
+                          data.qvel], -1)
+
+    def reward(self, model: Model, data: Data, obs, action):
+        standing = rewards.tolerance(
+            None, data.xpos[:, self._torso, 2],
+            bounds=(_STAND_HEIGHT, math.inf), margin=_STAND_HEIGHT / 2)
+        upright = (1.0 + data.xmat[:, self._torso, 2, 2]) / 2.0
+        stand = (3.0 * standing + upright) / 4.0
+        if self.move_speed == 0:
+            return stand
+        move = rewards.tolerance(
+            None, data.qvel[:, 1], bounds=(self.move_speed, math.inf),
+            margin=self.move_speed / 2, value_at_margin=0.5,
+            sigmoid="linear")
+        return stand * (5.0 * move + 1.0) / 6.0
+
+    def done(self, model: Model, data: Data, obs):
+        return time_limit_done(data, self.time_limit)
 
     def kernel_hooks(self, model: Model):
         """In-kernel env layer (ops/megakernel.py).  The reward reads the

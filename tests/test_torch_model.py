@@ -74,7 +74,13 @@ def test_import_leaves_jax_out():
         "oxide_control_torch.parallel.rollout, oxide_control_torch.convert, "
         "oxide_control_torch.ops.emit, oxide_control_torch.ops.build, "
         "oxide_control_torch.bench_configs, "
-        "oxide_control_torch.physics.muscle\n"
+        "oxide_control_torch.physics.muscle, "
+        "oxide_control_torch.physics.forward, "
+        "oxide_control_torch.physics.constraint, "
+        "oxide_control_torch.physics.sensor, "
+        "oxide_control_torch.physics.integrate, "
+        "oxide_control_torch.utils.divergence, "
+        "oxide_control_torch.api.environment\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('oxide_control_tpu')]\n"
         "assert not bad, bad\n"

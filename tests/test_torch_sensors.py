@@ -229,7 +229,11 @@ def test_fast_rollout_sensor_task_end_to_end():
     assert roll._carry_qacc and roll._n_state == 6
     gen = torch.Generator().manual_seed(0)
     state = roll.init(gen)
-    assert len(state) == 6 and not state[5].any()  # zero at reset
+    # the reset runs forward, as the reference's does: the carried qacc
+    # starts at the reset state's constrained acceleration
+    want = benv.reset(torch.Generator().manual_seed(0)).qacc
+    assert len(state) == 6 and torch.equal(state[5], want.T)
+    assert bool(state[5].abs().max() > 0)
     state, traj = roll.run(state, gen)
     assert len(state) == 6
     assert tuple(traj.obs.shape) == (5, task.kernel_hooks(m).n_obs, 8)

@@ -30,6 +30,7 @@ from oxide_control_torch import convert, suite
 from oxide_control_torch.ops import megakernel as mk
 from oxide_control_torch.ops import scalar_graph as sg
 from oxide_control_torch.parallel.rollout import FastRollout
+from oxide_control_torch.state import make_data
 from oxide_control_torch.suite import rewards
 
 B = 8
@@ -125,10 +126,10 @@ def test_reset_spec_matches_reference(domain, task):
     assert spec.vsig == hooks_r.reset_qvel_sigma
     assert hooks.time_limit == hooks_r.time_limit
 
+    # the draws alone: reset's forward moves no qpos or qvel
     n = 4000
-    benv = suite.load_batched(domain, task, n, dtype=np.float64,
-                              device="cpu")
-    data = benv.reset(torch.Generator().manual_seed(17))
+    data = t.init_episode(m, make_data(m, "cpu", torch.float64, batch=n),
+                          torch.Generator().manual_seed(17))
     qpos, qvel = data.qpos.numpy(), data.qvel.numpy()
     std_spec = np.sqrt(uamp ** 2 / 3.0 + sig ** 2)
     tol = 6.0 * std_spec / np.sqrt(n) + 1e-9
