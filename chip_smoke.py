@@ -62,10 +62,38 @@ Phases, each fatal on failure:
    with a new generator (so a new capture) against one eager ``rollout``
    call, which is also the eager timing (qpos and reward within 1e-4);
    a ``general`` JSON line;
-8. the kernels line (JSON) and the last line (JSON).
+8. narrowphase: the MPR, height-field and mesh narrowphases on the
+   general path, with seven models of the reference's tests (MPR for
+   ellipsoid-box, sphere-mesh and capsule-cylinder; the box on the
+   ridged field, MPR against 18 prisms; the ball in the valley and the
+   capsule on the flat field; the tetra on the plane) at B = 4096, f32,
+   K = 50 from a numpy-seeded jitter of the free bodies, dropped 1 cm
+   into their partners: one captured step against the eager one (qpos,
+   qvel and every contact lane bit for bit), ``jit_rollout`` timed
+   (a warm-up call with the capture, 2 calls between CUDA events) and 3
+   eager steps timed; then, while the reference tests' settles (the
+   valley ball after 3000 steps, the flat-field sphere and capsule after
+   500, the tetra after 600, the box stacks on an ellipsoid and on a mesh
+   after 2000; f64, B = 64 identical envs, one CUDA graph per model
+   replayed on its own stream from a thread) run to their invariants with
+   all 64 envs bit-identical: one f64 step of each model in contact on
+   the card against the CPU (qpos, qvel and the active lanes' dist, pos
+   and frame within 1e-12, an env past it only as a tie of MPR's normal
+   polish: depths within 1e-15, nothing past sqrt(eps)), ops per step,
+   ``Physics`` on the card (100
+   steps and every accessor, held against env 0 of a batch-1
+   ``BatchedEnvironment``) and a ``FastRollout`` state through
+   ``utils.checkpoint`` (the next call bit-identical); then
+   ``torch.profiler`` over one cheetah-run ``FastRollout.run`` and one
+   captured step of the ridged-field box (the top five device
+   operations of each on one line); a ``narrowphase`` JSON line;
+9. the kernels line (JSON) and the last line (JSON).
 
 Parity runs each main-path row at its own B and K; models without a
-bench row at K = 200: pendulum-swingup@1024, walker-walk-tendon@4096
+bench row at K = 200 (box-stack, condim46, elliptic-condim4/6 and
+fluid-forces at K = 50; walker-walk-tendon, weld, tendon-equality,
+plane-box-cyl-ellipsoid, ball-free-actuators, mocap-weld and
+applied-forces at K = 100): pendulum-swingup@1024, walker-walk-tendon@4096
 (walker with a fixed knee tendon carrying friction loss),
 stateful-actuators@1024 (filter, filterexact and integrator actuators),
 fourbar eq-toggle@4096 (the connect off on every other env through
@@ -102,9 +130,10 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from oxide_control_torch import bench_configs, convert, suite
+from oxide_control_torch.api import Physics
 from oxide_control_torch.api.environment import BatchedEnvironment
 from oxide_control_torch.mjcf.compile import load_model_from_xml
-from oxide_control_torch.model import JointType
+from oxide_control_torch.model import GeomType, JointType
 from oxide_control_torch.ops import megakernel as mk
 from oxide_control_torch.ops import scalar_graph as sg
 from oxide_control_torch.parallel.rollout import (
@@ -122,6 +151,7 @@ from oxide_control_torch.suite.common import (
     asset_path,
     time_limit_done,
 )
+from oxide_control_torch.utils import checkpoint, profiling
 from oxide_control_torch.utils.divergence import divergence_flags
 
 # two parity models without a bench row.  Filter, filterexact
@@ -624,31 +654,36 @@ ROWS = (
     ("humanoid-run-policy-obs@8192", "humanoid/run", 100, True, False),
 )
 # parity modes beside the rows (each row is a mode at its own B and K):
-# (label, task, K, variant)
+# (label, task, K, variant).  Cut to keep the smoke inside its time with
+# the narrowphase phase: the five slowest plain versions (box-stack,
+# condim46, the elliptic condim 4/6 models and fluid-forces: 184 s of the
+# plain phase at K = 200 on the H100) run K = 50, and the next seven (53
+# s) K = 100; ~10-33 envs of each still cross the time limit inside the
+# window.
 EXTRA_MODES = (
     ("pendulum-swingup@1024", "pendulum/swingup", 200, "ctrl"),
-    ("walker-walk-tendon@4096", "walker/walk-tendon", 200, "ctrl"),
+    ("walker-walk-tendon@4096", "walker/walk-tendon", 100, "ctrl"),
     ("stateful-actuators@1024", "stateful/actuators", 200, "ctrl"),
     # the connect off on every other env through eq_active
     ("fourbar eq-toggle@4096", "fourbar/equality", 200, "toggle"),
-    ("weld@1024", "weld", 200, "ctrl"),
-    ("tendon-equality@1024", "tendon-equality", 200, "ctrl"),
+    ("weld@1024", "weld", 100, "ctrl"),
+    ("tendon-equality@1024", "tendon-equality", 100, "ctrl"),
     ("box-pairs@1024", "box-pairs", 200, "ctrl"),
-    ("plane-box-cyl-ellipsoid@1024", "plane-shapes", 200, "ctrl"),
-    ("box-stack@1024", "box-stack", 200, "ctrl"),
+    ("plane-box-cyl-ellipsoid@1024", "plane-shapes", 100, "ctrl"),
+    ("box-stack@1024", "box-stack", 50, "ctrl"),
     ("ball-limit-spring@1024", "ball-limit-spring", 200, "ctrl"),
-    ("ball-free-actuators@1024", "ball-free-actuators", 200, "ctrl"),
+    ("ball-free-actuators@1024", "ball-free-actuators", 100, "ctrl"),
     ("weld-ball@1024", "weld-ball", 200, "ctrl"),
-    ("condim46@1024", "condim46", 200, "ctrl"),
-    ("elliptic-condim4@1024", "elliptic-condim4", 200, "ctrl"),
-    ("elliptic-condim6@1024", "elliptic-condim6", 200, "ctrl"),
+    ("condim46@1024", "condim46", 50, "ctrl"),
+    ("elliptic-condim4@1024", "elliptic-condim4", 50, "ctrl"),
+    ("elliptic-condim6@1024", "elliptic-condim6", 50, "ctrl"),
     # ctrl input, the observation (the sensor rows) collected
     ("sensors-all@1024", "sensors-all", 200, "collect"),
-    ("fluid-forces@1024", "fluid-forces", 200, "ctrl"),
+    ("fluid-forces@1024", "fluid-forces", 50, "ctrl"),
     # per-env mocap poses and eq_active rows
-    ("mocap-weld@1024", "mocap-weld", 200, "mocap"),
+    ("mocap-weld@1024", "mocap-weld", 100, "mocap"),
     # per-env qfrc and xfrc on every body
-    ("applied-forces@1024", "applied-forces", 200, "applied"),
+    ("applied-forces@1024", "applied-forces", 100, "applied"),
     ("cheetah explore", "cheetah/run", 24, "explore"),
     ("cheetah gaussian_reset", "cheetah/run", 24, "gauss"),
 )
@@ -1417,10 +1452,28 @@ def general_f64_phase():
     return out
 
 
+def env_gaps(a, b, lanes=None):
+    """Per env, the worst gap of two states (on one device): qpos, qvel
+    and the contact's dist, pos and frame on ``lanes (B, L)``, every lane
+    where None."""
+    gap = torch.maximum((a.qpos - b.qpos).abs().amax(1),
+                        (a.qvel - b.qvel).abs().amax(1))
+    for f in ("dist", "pos", "frame"):
+        x = (getattr(a.contact, f) - getattr(b.contact, f)).abs()
+        if x.numel() == 0:        # a model without contact lanes
+            continue
+        x = x.reshape(x.shape[:2] + (-1,)).amax(-1)
+        if lanes is not None:
+            x = torch.where(lanes, x, torch.zeros_like(x))
+        gap = torch.maximum(gap, x.amax(1))
+    return gap
+
+
 def captured_step_gap(model, d):
     """One general step captured in a CUDA graph and replayed, against
-    the same step run eagerly from ``d``: the worst qpos/qvel gap (the
-    dense solves of every solver and integrator under capture)."""
+    the same step run eagerly from ``d``: the worst gap of qpos, qvel and
+    every contact lane (the dense solves of every solver and integrator,
+    and the narrowphases, under capture)."""
     static = tree_map(lambda x: x.clone(), d)
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -1433,8 +1486,7 @@ def captured_step_gap(model, d):
     graph.replay()
     eager = pfwd.step(model, d)
     torch.cuda.synchronize()
-    return max(float((out.qpos - eager.qpos).abs().max()),
-               float((out.qvel - eager.qvel).abs().max()))
+    return float(env_gaps(out, eager).max())
 
 
 def general_outside_phase():
@@ -1484,13 +1536,12 @@ class OpCount(TorchDispatchMode):
         return func(*args, **(kwargs or {}))
 
 
-def count_step_ops(dom, task):
-    """Torch operator calls of one general-path env step (the ops a
-    captured step replays), by stage, counted on the CPU at B = 4: the
-    count does not depend on B."""
+def count_step_ops(benv):
+    """Torch operator calls of one general-path env step of ``benv`` (a
+    CPU BatchedEnvironment; the ops a captured step replays), by stage,
+    counted at its B: the count does not depend on B."""
     from oxide_control_torch.physics import constraint, forward
 
-    benv = bench_configs.load_config(dom, task, 4, device="cpu")
     gen = torch.Generator().manual_seed(0)
     data = benv.reset(gen)
     counter = OpCount()
@@ -1515,7 +1566,7 @@ def count_step_ops(dom, task):
         for (mod, name, fn), (_, _, stage) in zip(saved, stages):
             setattr(mod, name, wrap(fn, stage))
         with counter:
-            action = torch.empty((4, benv.model.nu)).uniform_(
+            action = torch.empty((benv.num_envs, benv.model.nu)).uniform_(
                 -1.0, 1.0, generator=gen)
             benv.step(data, action, gen)
     finally:
@@ -1596,7 +1647,8 @@ def general_rows_phase(rows, smi):
                 raise AssertionError(f"general {row}: captured vs eager {k} "
                                      f"{agree[k]} over {HOP_BARS[k]}")
         env_steps = GENERAL_B * GENERAL_K
-        ops = count_step_ops(dom, task)
+        ops = count_step_ops(bench_configs.load_config(dom, task, 4,
+                                                       device="cpu"))
         out[row] = dict(
             torch_ops_per_step=ops,
             us_per_op=ms * 1e3 / GENERAL_K / ops["total"],
@@ -1619,6 +1671,563 @@ def general_rows_phase(rows, smi):
     return dict(rows=out, card=smi,
                 timed_calls_cut=any(r["timed_calls"] < N_TIMED
                                     for r in out.values()))
+
+
+# ---------------------------------------------------------------------------
+# narrowphase phase: the MPR, height-field and mesh narrowphases on the
+# general path.  The models are the reference's tests' (tests/test_mpr.py,
+# tests/test_hfield.py, tests/test_mesh.py), copied here because those
+# files import JAX.
+# ---------------------------------------------------------------------------
+
+ELLBOX_XML = """
+<mujoco>
+  <option timestep="0.002" solver="Newton" iterations="30" tolerance="0"/>
+  <worldbody>
+    <geom name="floor" type="plane" size="3 3 .1"/>
+    <body name="bx" pos="0 0 0.1">
+      <geom name="box" type="box" size="0.25 0.25 0.1" mass="2"/>
+    </body>
+    <body name="el" pos="0.05 0.02 0.5">
+      <freejoint/>
+      <geom name="ell" type="ellipsoid" size="0.1 0.12 0.08" mass="0.5"/>
+    </body>
+  </worldbody>
+</mujoco>
+"""
+TET_MESH_XML = """
+<mujoco>
+  <option timestep="0.002" solver="Newton" iterations="30" tolerance="0"/>
+  <asset>
+    <mesh name="tet" vertex="0 0 0  0.3 0 0  0 0.3 0  0.15 0.15 0.35"/>
+  </asset>
+  <worldbody>
+    <geom name="floor" type="plane" size="3 3 .1"/>
+    <body name="base" pos="0 0 0.02">
+      <geom name="mg" type="mesh" mesh="tet" mass="2"/>
+    </body>
+    <body name="ball" pos="0.14 0.12 0.8">
+      <freejoint/>
+      <geom name="bg" type="sphere" size="0.08" mass="0.3"/>
+    </body>
+  </worldbody>
+</mujoco>
+"""
+CAPCYL_XML = """
+<mujoco>
+  <option timestep="0.002" solver="Newton" iterations="30" tolerance="0"/>
+  <worldbody>
+    <geom name="floor" type="plane" size="3 3 .1"/>
+    <body name="cyl" pos="0 0 0.15">
+      <geom name="cg" type="cylinder" size="0.12 0.15" mass="2"/>
+    </body>
+    <body name="cap" pos="0.02 0.01 0.5">
+      <freejoint/>
+      <geom name="kg" type="capsule" size="0.05 0.12" mass="0.4"
+            euler="0 85 0"/>
+    </body>
+  </worldbody>
+</mujoco>
+"""
+RIDGE_XML = """
+<mujoco>
+  <option timestep="0.002" solver="Newton" iterations="30" tolerance="0"/>
+  <asset>
+    <hfield name="terrain" nrow="9" ncol="9" size="1.5 1.5 0.18 0.1"
+            elevation="0 .2 .4 .5 .4 .3 .2 .1 0
+                       .1 .3 .5 .6 .5 .4 .3 .2 .1
+                       .2 .4 .6 .8 .7 .5 .4 .3 .2
+                       .3 .5 .8 1  .8 .6 .5 .4 .3
+                       .2 .4 .7 .8 .6 .5 .4 .3 .2
+                       .1 .3 .5 .6 .5 .4 .3 .2 .1
+                       0 .2 .4 .5 .4 .3 .2 .1 0
+                       0 .1 .2 .3 .2 .2 .1 0 0
+                       0 0 .1 .2 .1 .1 0 0 0"/>
+  </asset>
+  <worldbody>
+    <geom name="hf" type="hfield" hfield="terrain"/>
+    <body name="box" pos="0.3 0.2 0.6">
+      <joint type="free"/>
+      <geom name="bx" type="box" size="0.12 0.1 0.08" mass="1"/>
+    </body>
+  </worldbody>
+</mujoco>
+"""
+_FLAT_FIELD = """
+  <asset>
+    <hfield name="terrain" nrow="5" ncol="5" size="2 2 0.5 0.1"
+            elevation="0 0 0 0 0  0 0 0 0 0  0 0 0 0 0  0 0 0 0 0  0 0 0 0 0"/>
+  </asset>"""
+FLAT_XML = f"""
+<mujoco>{_FLAT_FIELD}
+  <worldbody>
+    <geom name="ground" type="hfield" hfield="terrain"/>
+    <body name="ball" pos="0.3 0.2 0.5">
+      <freejoint/>
+      <geom name="bg" type="sphere" size="0.1" mass="0.5"/>
+    </body>
+  </worldbody>
+</mujoco>
+"""
+VALLEY_XML = """
+<mujoco>
+  <asset>
+    <hfield name="valley" nrow="3" ncol="5" size="2 2 0.4 0.1"
+            elevation="1 0.5 0 0.5 1  1 0.5 0 0.5 1  1 0.5 0 0.5 1"/>
+  </asset>
+  <worldbody>
+    <geom name="ground" type="hfield" hfield="valley"
+          friction="0.01 0.001 0.0001"/>
+    <body name="ball" pos="-1.2 0 0.8">
+      <freejoint/>
+      <geom name="bg" type="sphere" size="0.1" mass="0.5"
+            friction="0.01 0.001 0.0001"/>
+    </body>
+  </worldbody>
+</mujoco>
+"""
+CAPSULE_XML = f"""
+<mujoco>{_FLAT_FIELD}
+  <worldbody>
+    <geom name="ground" type="hfield" hfield="terrain"/>
+    <body name="pill" pos="0 0 0.4">
+      <freejoint/>
+      <geom name="pg" type="capsule" size="0.08 0.2" mass="0.5"
+            euler="0 90 0"/>
+    </body>
+  </worldbody>
+</mujoco>
+"""
+MESH_XML = """
+<mujoco>
+  <asset><mesh name="tetra" vertex="0 0 0  0.2 0 0  0 0.2 0  0.07 0.07 0.2"/>
+  </asset>
+  <worldbody>
+    <geom name="floor" type="plane" size="2 2 0.1"/>
+    <body name="b" pos="0 0 0.3">
+      <freejoint/>
+      <geom name="g" type="mesh" mesh="tetra" mass="0.3"
+            friction="0.8 0.005 0.0001"/>
+    </body>
+  </worldbody>
+</mujoco>
+"""
+_STACK = """
+<mujoco>{asset}
+  <option timestep="0.002" solver="Newton" iterations="30" tolerance="0"/>
+  <worldbody>
+    <geom type="plane" size="3 3 .1"/>
+    <body pos="0 0 {z}">
+      <joint type="free"/>
+      <geom {base}/>
+    </body>
+    <body name="top" pos="0 0 {top}">
+      <joint type="free"/>
+      <geom type="box" size="0.12 0.1 0.1" mass="0.5"/>
+    </body>
+  </worldbody>
+</mujoco>
+"""
+BOX_ON_ELLIPSOID_XML = _STACK.format(
+    asset="", z=0.1, top=0.3,
+    base='type="ellipsoid" size="0.25 0.2 0.1" mass="1"')
+BOX_ON_MESH_XML = _STACK.format(
+    asset='<asset><mesh name="slab" vertex="-0.4 -0.4 0  0.4 -0.4 0  '
+          '0.4 0.4 0  -0.4 0.4 0  -0.3 -0.3 0.2  0.3 -0.3 0.2  0.3 0.3 0.2  '
+          '-0.3 0.3 0.2"/></asset>', z=0.25, top=0.56,
+    base='type="mesh" mesh="slab" mass="1"')
+
+# the seven models of the phase's rows: MPR (ellipsoid-box, sphere-mesh,
+# capsule-cylinder), the prism MPR (box on the ridged field, 90 lanes),
+# the analytic height-field pairs (sphere, capsule) and plane-mesh; each
+# with the z offset that drops its free body from the XML's pose to 1 cm
+# into its partner (the jitter then spreads the envs over +-2 cm)
+NARROW_ROWS = (
+    ("ellipsoid-box", ELLBOX_XML, -0.23),
+    ("sphere-mesh", TET_MESH_XML, -0.368),
+    ("capsule-cylinder", CAPCYL_XML, -0.15),
+    ("box-ridge-prisms", RIDGE_XML, -0.411),
+    ("ball-valley", VALLEY_XML, -0.468),
+    ("capsule-flat-field", CAPSULE_XML, -0.33),
+    ("tetra-plane", MESH_XML, -0.31),
+)
+NARROW_B, NARROW_K, NARROW_TIMED, NARROW_EAGER_STEPS = 4096, 50, 2, 3
+CARD_CPU_BAR = 1e-12
+# a tie of MPR's normal polish: the depths agree to the rounding level,
+# and nothing parts by sqrt(f64 eps)
+DEPTH_BAR, FLAT_BAR = 1e-15, 2.0 ** -26
+
+
+def jittered(model, b, device, dtype, seed, drop=0.0):
+    """make_data with every free body lowered by ``drop`` and its position
+    jittered by U(-0.02, 0.02), its velocity drawn U(-0.2, 0.2), from one
+    numpy seed (the same on every device)."""
+    rng = np.random.default_rng(seed)
+    qpos = np.tile(np.asarray(model.qpos0, np.float64), (b, 1))
+    qvel = np.zeros((b, model.nv))
+    for j in range(model.njnt):
+        if JointType(model.jnt_type[j]) == JointType.FREE:
+            q, v = model.jnt_qposadr[j], model.jnt_dofadr[j]
+            qpos[:, q + 2] += drop
+            qpos[:, q:q + 3] += 0.02 * rng.uniform(-1, 1, (b, 3))
+            qvel[:, v:v + 6] = 0.2 * rng.uniform(-1, 1, (b, 6))
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    return make_data(model, device, dtype, batch=b).replace(
+        qpos=t(qpos), qvel=t(qvel))
+
+
+def active_lanes(d):
+    """(B, L): the lanes that reach the solver (dist < includemargin)."""
+    return d.contact.dist < d.contact.includemargin
+
+
+def narrow_row(name, xml, drop):
+    """One model at B = 4096, f32, K = 50, its envs starting in contact:
+    one captured step against the eager step (qpos, qvel and every
+    contact lane bit for bit), then jit_rollout timed (captured: a warm-up
+    call with the capture, then NARROW_TIMED calls between CUDA events)
+    and NARROW_EAGER_STEPS eager steps timed."""
+    model = load_model_from_xml(xml, np.float32)
+    benv = BatchedEnvironment(model, bench_configs.BenchTask(), NARROW_B)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    jit = jittered(model, NARROW_B, "cuda", torch.float32, 6, drop)
+    data = benv.reset(gen).replace(qpos=jit.qpos, qvel=jit.qvel)
+    touching = int(active_lanes(pfwd.step(model, data)).any(1).sum())
+    if touching < NARROW_B // 4:
+        raise AssertionError(f"narrowphase {name}: {touching} envs in "
+                             f"contact at the start")
+    gap = captured_step_gap(model, data)
+    if gap != 0.0:
+        raise AssertionError(f"narrowphase {name}: a captured step parts "
+                             f"from the eager one by {gap}")
+    jr = jit_rollout(benv, NARROW_K)
+    t0 = time.perf_counter()
+    out, (rew, _), _ = jr(tree_map(lambda x: x.clone(), data), gen)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(NARROW_TIMED):
+        out, (rew, _), _ = jr(out, gen)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / NARROW_TIMED
+    active = int((out.contact.dist < out.contact.includemargin).sum())
+    diverged = int(divergence_flags(model, out).sum())
+    if not bool(torch.isfinite(rew).all()):
+        raise AssertionError(f"narrowphase {name}: non-finite rewards")
+    start.record()
+    rollout(benv, data, gen, NARROW_EAGER_STEPS)
+    end.record()
+    torch.cuda.synchronize()
+    eager_ms = start.elapsed_time(end) / NARROW_EAGER_STEPS
+    row = dict(pairs=[f"{GeomType(a).name}-{GeomType(b).name}"
+                      for a, b, _ in model.pair_groups],
+               lanes=int(out.contact.dist.shape[1]),
+               env_steps_per_s=NARROW_B * NARROW_K / (ms * 1e-3),
+               call_ms=ms, timed_calls=NARROW_TIMED,
+               eager_env_steps_per_s=NARROW_B / (eager_ms * 1e-3),
+               eager_step_ms=eager_ms, capture_s=jr.capture_s,
+               first_call_s=warm_s, envs_in_contact_at_start=touching,
+               active_lanes=active, diverged_envs=diverged,
+               captured_vs_eager=gap)
+    log(f"narrowphase {name}@{NARROW_B} (K={NARROW_K}, f32; "
+        f"{', '.join(row['pairs'])}, {row['lanes']} lanes): captured "
+        f"{ms:.3f} ms per call ({row['env_steps_per_s']:.6e} env-steps/s), "
+        f"eager {eager_ms:.3f} ms per step "
+        f"({row['eager_env_steps_per_s']:.6e}), capture {jr.capture_s:.2f} "
+        f"s, {active} active lanes at the end, diverged {diverged}; "
+        f"{touching} envs in contact at the start, a captured step vs the "
+        f"eager step there (qpos, qvel, every contact lane) {gap:.3e} "
+        f"(bar 0)")
+    return row
+
+
+def narrow_untimed(name, xml, drop, row):
+    """The row's checks that read no device time, run while the settles
+    replay: one f64 step card vs CPU at B = 64 from states in contact
+    (qpos, qvel, and dist, pos and frame on the lanes that reach the
+    solver on either side), and the ops per step (counted on the CPU at
+    B = 4).  An env that parts by more than the bar is let pass only as
+    a tie of MPR's normal polish: the polish keeps the iterate of least
+    s(n) = -depth, and at a flat minimum iterates whose s ties at the
+    rounding level differ in n by up to sqrt(eps); so its lanes' depths
+    agree within DEPTH_BAR and nothing parts by FLAT_BAR, and at most a
+    quarter of the envs in contact part.  Syncs the current stream
+    only."""
+    m64 = load_model_from_xml(xml, np.float64)
+    card = pfwd.step(m64, jittered(m64, 64, "cuda", torch.float64, 7, drop))
+    card = tree_map(lambda x: x.cpu(), card)
+    ref = pfwd.step(m64, jittered(m64, 64, "cpu", torch.float64, 7, drop))
+    lanes = active_lanes(card) | active_lanes(ref)
+    touching = int(lanes.any(1).sum())
+    gaps = env_gaps(card, ref, lanes)
+    depth = torch.where(lanes, (card.contact.dist - ref.contact.dist).abs(),
+                        torch.zeros_like(card.contact.dist)).amax(1)
+    parted = torch.nonzero(gaps >= CARD_CPU_BAR)[:, 0].tolist()
+    ties = [e for e in parted if depth[e] < DEPTH_BAR and gaps[e] < FLAT_BAR]
+    held = gaps[[e for e in range(64) if e not in parted]]
+    card_cpu = float(held.max()) if len(held) else float("nan")
+    ops = count_step_ops(BatchedEnvironment(
+        load_model_from_xml(xml, np.float32), bench_configs.BenchTask(), 4,
+        device="cpu"))
+    row.update(card_vs_cpu_f64=card_cpu, card_cpu_envs_in_contact=touching,
+               card_cpu_active_lanes=int(lanes.sum()),
+               card_cpu_parted={e: [float(gaps[e]), float(depth[e])]
+                                for e in parted},
+               torch_ops_per_step=ops["total"],
+               us_per_op=row["call_ms"] * 1e3 / NARROW_K / ops["total"])
+    log(f"narrowphase {name}: {ops['total']} torch ops per step "
+        f"({row['us_per_op']:.3f} us each captured); one f64 step card vs "
+        f"CPU at B=64 from {touching} envs in contact "
+        f"({int(lanes.sum())} active lanes): {card_cpu:.3e} over the "
+        f"{64 - len(parted)} envs held (bar {CARD_CPU_BAR:g}); parted envs "
+        + (", ".join(f"{e} by {gaps[e]:.3e}, depths by {depth[e]:.3e} "
+                     f"({'a polish tie' if e in ties else 'NOT a tie'})"
+                     for e in parted) or "none"))
+    if touching < 16 or len(ties) < len(parted) or len(parted) > touching // 4:
+        raise AssertionError(f"narrowphase {name}: card vs CPU, {touching} "
+                             f"envs in contact, parted {parted}, ties {ties}")
+
+
+def _lowest_vertex(model, d):
+    """The lowest world z of env 0's mesh vertices (the model's last geom,
+    a mesh)."""
+    from oxide_control_torch.physics import smooth
+
+    d = smooth.kinematics(model, d)
+    verts = torch.as_tensor(np.asarray(model.mesh_vert), dtype=d.qpos.dtype,
+                            device=d.qpos.device)
+    g = model.ngeom - 1
+    return float((d.geom_xpos[0, g] + verts @ d.geom_xmat[0, g].T)[:, 2]
+                 .min())
+
+
+def _stack_holds(q, dz):
+    return (abs(q[7]) < 1e-4 and abs(q[8]) < 1e-4 and abs(q[9] - 0.3) < dz
+            and q[10] > 0.99999)
+
+
+# name -> (xml, steps, initial qvel of the free body, invariant of env 0's
+# final (qpos, qvel) and the model's lowest mesh vertex), the reference
+# tests' settles (tests/test_hfield.py, test_mesh.py, test_mpr.py)
+SETTLES = {
+    "ball rolls to the valley": (
+        VALLEY_XML, 3000, None,
+        lambda q, v, low: abs(q[0]) < 0.6 and q[2] < 0.35),
+    "sphere rests on the flat field": (
+        FLAT_XML, 500, None, lambda q, v, low: abs(q[2] - 0.1) < 5e-3),
+    "capsule rests on the flat field": (
+        CAPSULE_XML, 500, None,
+        lambda q, v, low: abs(q[2] - 0.08) < 5e-3 and max(map(abs, v)) < 0.05),
+    "tetra settles on the plane": (
+        MESH_XML, 600, [0.2, -0.1, -0.5],
+        lambda q, v, low: max(map(abs, v)) < 0.05 and low > -5e-3),
+    "box stack on an ellipsoid holds": (
+        BOX_ON_ELLIPSOID_XML, 2000, None,
+        lambda q, v, low: _stack_holds(q, 2e-3)),
+    "box stack on a mesh holds": (
+        BOX_ON_MESH_XML, 2000, None, lambda q, v, low: _stack_holds(q, 3e-3)),
+}
+SETTLE_B = 64
+
+
+def start_settles():
+    """The reference tests' settles at their own depths, f64, on B = 64
+    identical envs: one step of each model captured in a CUDA graph, and
+    every replay enqueued from a thread of its own, each model's on a
+    stream of its own, a round at a time: the streams run side by side,
+    and the host goes on.  Returns the cases, the start time and the
+    thread's future."""
+    cases = []
+    for name, (xml, steps, qvel, _) in SETTLES.items():
+        model = load_model_from_xml(xml, np.float64)
+        d = make_data(model, "cuda", torch.float64, batch=SETTLE_B)
+        if qvel is not None:
+            d.qvel[:, :3] = torch.tensor(qvel, dtype=torch.float64)
+        static = tree_map(lambda x: x.clone(), d)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            pfwd.step(model, static)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            tree_map(lambda dst, src: dst.copy_(src), static,
+                     pfwd.step(model, static))
+        cases.append((name, model, static, graph, steps, side))
+    torch.cuda.synchronize()
+
+    def replay():
+        marks = []
+        for k in range(max(c[4] for c in cases)):
+            for _, _, _, graph, steps, stream in cases:
+                if k < steps:
+                    with torch.cuda.stream(stream):
+                        graph.replay()
+            # two rounds in flight at most: a full launch queue would also
+            # hold the host's other launches (and the longest chain, the
+            # first model's, bounds every stream's backlog)
+            marks.append(torch.cuda.Event())
+            marks[-1].record(cases[0][5])
+            if len(marks) > 2:
+                mark = marks.pop(0)
+                while not mark.query():
+                    time.sleep(2e-4)
+
+    pool = ThreadPoolExecutor(1)
+    t0 = time.perf_counter()
+    future = pool.submit(replay)
+    pool.shutdown(wait=False)
+    return cases, t0, future
+
+
+def finish_settles(cases, t0, future):
+    """Waits for the settles' thread and streams; every invariant must
+    hold and the 64 envs agree bit for bit."""
+    future.result()
+    for case in cases:
+        case[5].synchronize()
+    seconds = time.perf_counter() - t0
+    out = {}
+    for name, model, d, _, steps, _ in cases:
+        q, v = d.qpos[0].tolist(), d.qvel[0].tolist()
+        mesh_last = GeomType(model.geom_type[-1]) == GeomType.MESH
+        low = _lowest_vertex(model, d) if mesh_last else 0.0
+        same = bool((d.qpos == d.qpos[:1]).all() and (d.qvel == d.qvel[:1])
+                    .all())
+        ok = bool(np.isfinite(q).all()) and SETTLES[name][3](q, v, low)
+        out[name] = dict(steps=steps, qpos=q, max_abs_qvel=max(map(abs, v)),
+                         lowest_vertex=low, envs_bit_identical=same)
+        log(f"settle: {name} ({steps} f64 steps, B={SETTLE_B}): qpos "
+            f"{[round(x, 6) for x in q]}, max |qvel| {max(map(abs, v)):.3e}"
+            + (f", lowest vertex {low:.3e}" if mesh_last else "")
+            + f"; invariant {'holds' if ok else 'FAILS'}, {SETTLE_B} envs "
+            f"bit-identical {same}")
+        if not (ok and same):
+            raise AssertionError(f"settle: {name} failed")
+    log(f"settle: {sum(c[4] for c in cases)} steps of {len(cases)} models "
+        f"side by side in {seconds:.2f} s")
+    return dict(models=out, seconds=seconds)
+
+
+def physics_api_check():
+    """Physics on cuda: 100 eager steps of the sphere-on-mesh model from
+    the ball resting into the mesh's apex (MPR contacts from the first
+    step), every accessor read; its qpos equals env 0 of a batch-1
+    BatchedEnvironment stepped 100 times from the same state.  Syncs the
+    current stream only."""
+    p = Physics.from_xml_string(TET_MESH_XML)
+    p.set_qpos(0, [0.14, 0.12, 0.44, 1.0, 0.0, 0.0, 0.0])
+    model = p.model
+    benv = BatchedEnvironment(model, bench_configs.BenchTask(), 1,
+                              dtype=torch.float64)
+    d = make_data(model, "cuda", torch.float64, batch=1).replace(
+        qpos=p.data.qpos.clone())
+    for _ in range(100):
+        p.step()
+        d, _ = benv.step_envs(d, torch.zeros((1, 0), device="cuda"))
+    same = bool(torch.equal(p.data.qpos, d.qpos))
+    reads = dict(time=float(p.time), qpos=p.qpos(0).tolist(),
+                 qvel=p.qvel(0).tolist(), body_xpos=p.body_xpos("ball")
+                 .tolist(), body_xquat=p.body_xquat(2).tolist(),
+                 geom_xpos=p.geom_xpos("bg").tolist(),
+                 warmstart=float(p.qacc_warmstart(2)),
+                 qfrc_applied=float(p.qfrc_applied(0)),
+                 xfrc_applied=p.xfrc_applied("ball").tolist(),
+                 sensordata=p.sensordata().tolist(), diverged=p.diverged(),
+                 object_id=p.object_id("body", "ball"),
+                 object_name=p.object_name("geom", 2))
+    log(f"Physics on cuda: 100 steps of the sphere-on-mesh model; qpos "
+        f"{[round(x, 6) for x in reads['qpos']]} equals env 0 of the "
+        f"batch-1 BatchedEnvironment: {same}; time {reads['time']:.3f}, "
+        f"diverged {reads['diverged']}")
+    if not same or reads["diverged"] or reads["object_name"] != "bg":
+        raise AssertionError("Physics on cuda parts from the batched path")
+    return dict(reads, matches_batched=same)
+
+
+def checkpoint_check(roll):
+    """A FastRollout state saved with its generator and loaded resumes
+    bit for bit for one more call."""
+    path = "chiprun_out/narrowphase_ckpt.npz"
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    state = roll.init(gen)
+    state, _ = roll.run(state, gen)
+    checkpoint.save(path, roll.unpack(state), generator=gen)
+    data, gen2 = checkpoint.load(path, roll.benv.model)
+    s1, t1 = roll.run(state, gen)
+    s2, t2 = roll.run(roll.pack(data), gen2)
+    same = all(torch.equal(a, b) for a, b in zip(s1, s2)) and torch.equal(
+        t1.reward_sum, t2.reward_sum)
+    log(f"checkpoint: a {roll.benv.num_envs}-env FastRollout state saved, "
+        f"loaded and run one more call: bit-identical {same}")
+    if not same:
+        raise AssertionError("checkpoint: the resumed call parts")
+    return same
+
+
+def _top_device_ops(prof, skip, n=5):
+    """The n operations with the most device time, the annotated span
+    ``skip`` left out: (name, ms)."""
+    def dev_us(e):
+        for attr in ("self_device_time_total", "self_cuda_time_total"):
+            if hasattr(e, attr):
+                return getattr(e, attr)
+        return 0.0
+    rows = sorted((e for e in prof.key_averages() if e.key != skip),
+                  key=dev_us, reverse=True)[:n]
+    return [(e.key[:60], dev_us(e) * 1e-3) for e in rows]
+
+
+def profiler_check(roll):
+    """torch.profiler on the card: one FastRollout.run of cheetah-run and
+    one captured general step of the ridged-field box (graph replay)."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    state = roll.init(gen)
+    roll.run(state, gen)
+    with profiling.trace("chiprun_out/profile_cheetah") as prof:
+        with profiling.annotate("FastRollout.run"):
+            roll.run(state, gen)
+    kernel_top = _top_device_ops(prof, "FastRollout.run")
+    model = load_model_from_xml(RIDGE_XML, np.float32)
+    benv = BatchedEnvironment(model, bench_configs.BenchTask(), NARROW_B)
+    jr = jit_rollout(benv, 1)
+    data = benv.reset(gen)
+    data, _, _ = jr(data, gen)
+    with profiling.trace("chiprun_out/profile_ridge") as prof:
+        with profiling.annotate("captured general step"):
+            jr(data, gen)
+    general_top = _top_device_ops(prof, "captured general step")
+    tops = (("cheetah-run@4096 FastRollout.run", kernel_top),
+            ("box-ridge-prisms@4096 captured step", general_top))
+    log("profiler, the five device operations with the most time: "
+        + " | ".join(f"{label}: " + "; ".join(
+            f"{k} {ms:.3f} ms" for k, ms in top) for label, top in tops))
+    if not kernel_top or kernel_top[0][1] <= 0.0:
+        raise AssertionError("profiler: no device time recorded")
+    return dict(fast_rollout=kernel_top, captured_general_step=general_top)
+
+
+def narrowphase_phase(rolls, smi):
+    """The seven rows (timed, the card to themselves), then the settles on
+    their own streams with the untimed checks beside them (card vs CPU,
+    ops per step, Physics, a checkpoint), then the profiler: the
+    ``narrowphase`` JSON line."""
+    rows = {name: narrow_row(name, xml, drop)
+            for name, xml, drop in NARROW_ROWS}
+    cases, t0, future = start_settles()
+    for name, xml, drop in NARROW_ROWS:
+        narrow_untimed(name, xml, drop, rows[name])
+    physics = physics_api_check()
+    ckpt_ok = checkpoint_check(rolls["cheetah-run@4096"])
+    log(f"narrowphase: the untimed checks done "
+        f"{time.perf_counter() - t0:.1f} s into the settles")
+    settles = finish_settles(cases, t0, future)
+    prof = profiler_check(rolls["cheetah-run@4096"])
+    return dict(rows=rows, settles=settles, physics=physics,
+                checkpoint_bit_identical=ckpt_ok, profiler=prof, card=smi)
 
 
 def main():
@@ -1688,6 +2297,9 @@ def main():
     general = general_rows_phase(rows, smi)
     general.update(hop=hop_errs, f64=f64, outside=outside)
     log(f"phase general: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    narrow = narrowphase_phase(rolls, smi)
+    log(f"phase narrowphase: {time.perf_counter() - t:.1f} s")
 
     kernels = []
     for row, roll in rolls.items():
@@ -1717,6 +2329,7 @@ def main():
             f"{plain[row]['plain_ms']:.1f} ms per call, {work}")
     log(f"card: {smi}; whole run {time.perf_counter() - T0:.1f} s")
     print(json.dumps({"general": general}), flush=True)
+    print(json.dumps({"narrowphase": narrow}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -12,6 +12,15 @@ JAX nor anything of it.  The main path is the rollout engine on one GPU::
     state = roll.init(gen)
     state, traj = roll.run(state, gen)
 
+and one environment behind typed accessors, on the general path::
+
+    from oxide_control_torch.api import Physics
+
+    physics = Physics.from_xml_string(xml)                # on cuda
+    physics.set_qpos("hinge", 0.3)
+    physics.step()
+    z = physics.body_xpos("torso")[2]
+
 Entry points run on the current CUDA device unless the caller passes
 ``device="cpu"``; on a CPU tensor the rollout runs its plain PyTorch
 version, on a CUDA tensor it launches the hand-written kernel
@@ -37,3 +46,28 @@ def default_device(device=None) -> torch.device:
             "the caller passes device='cpu'"
         )
     return torch.device("cuda", torch.cuda.current_device())
+
+
+# the reference's top-level exports (after default_device, which the API
+# modules they import read)
+from .mjcf.compile import load_model, load_model_from_xml  # noqa: E402
+from .model import (  # noqa: E402
+    GeomType,
+    Integrator,
+    JointType,
+    Model,
+    Option,
+    SolverType,
+)
+
+__all__ = [
+    "GeomType",
+    "Integrator",
+    "JointType",
+    "Model",
+    "Option",
+    "SolverType",
+    "default_device",
+    "load_model",
+    "load_model_from_xml",
+]

@@ -25,7 +25,6 @@ from .. import default_device
 from ..model import Model
 from ..physics import forward as _forward
 from ..physics import smooth as _smooth
-from ..physics.collision import check_supported
 from ..state import Data, make_data, tree_map
 from ..utils.divergence import divergence_flags
 
@@ -97,7 +96,6 @@ class BatchedEnvironment:
     def reset(self, generator: torch.Generator) -> Data:
         """A batch of new episodes (``task.init_episode``) with every
         derived field filled by ``forward``."""
-        check_supported(self._model)
         data = self._task.init_episode(self._model, self._fresh(), generator)
         return _forward.forward(self._model, data)
 

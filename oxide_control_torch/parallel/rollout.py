@@ -24,7 +24,7 @@ from .. import convert
 from ..api.environment import BatchedEnvironment
 from ..ops import megakernel as mk
 from ..ops import scalar_graph as sg
-from ..state import Data, mocap_rest_pose, tree_map
+from ..state import Data, make_data, mocap_rest_pose, tree_map
 
 
 def uniform_policy(benv: BatchedEnvironment):
@@ -253,6 +253,20 @@ class FastRollout:
         if self._carry_qacc:
             state += (data.qacc.T,)
         return tuple(x.contiguous() for x in state)
+
+    def unpack(self, state) -> Data:
+        """Kernel state -> env-major Data with its core fields filled (the
+        inverse of :meth:`pack`; derived fields zero), for a checkpoint."""
+        b = self.benv.num_envs
+        data = make_data(self.benv.model, state[0].device, state[0].dtype,
+                         batch=b)
+        data = data.replace(
+            qpos=state[0].T, qvel=state[1].T,
+            act=state[2].T[:, :self.benv.model.na],
+            qacc_warmstart=state[3].T, time=state[4][0])
+        if self._carry_qacc:
+            data = data.replace(qacc=state[5].T)
+        return data
 
     def run(self, state, generator: torch.Generator, eq_active=None, *,
             mocap_pos=None, mocap_quat=None, qfrc_applied=None,

@@ -3,21 +3,27 @@
 The port of ``oxide_control_tpu/physics/collision.py``: its lane counts
 (``max_contacts_per_pair``, also read by the scalar graph), the contact
 frame, every closed-form primitive pair (``_PRIMS``, plane-sphere through
-box-box), the ``collision()`` dispatcher, ``contact_condims`` and
-``geom_distance`` on primitive pairs.  Candidate pairs are fixed at
-compile time; every pair owns a fixed number of lanes and a lane with
-``dist >= includemargin`` is inactive.  Each primitive takes world poses
-with any leading axes (the env axis, then the pairs of one type group),
-where the reference ``vmap``s one pair.
-
-The MPR, height-field and mesh narrowphases are ROADMAP item 11b: a model
-with such a pair raises ``NotImplementedError`` naming the row, never
-dropping the contact.
+box-box), Minkowski Portal Refinement with its perturbed-support manifold
+lanes for the other convex pairs (meshes included), plane against mesh,
+the height-field pairs (analytic for spheres and capsules, MPR against
+the 18 triangle prisms of a 3x3 cell window for boxes, ellipsoids and
+cylinders), the ``collision()`` dispatcher, ``contact_condims`` and
+``geom_distance``.  Candidate pairs are fixed at compile time; every pair
+owns a fixed number of lanes and a lane with ``dist >= includemargin`` is
+inactive.  Each narrowphase takes world poses with any leading axes (the
+env axis, then the pairs of one type group), where the reference
+``vmap``s one pair or loops over them; the pairs of a group run as one
+batch (meshes padded to the group's largest vertex count, height fields
+as per-pair grid constants over the flat elevation data).  Every loop has
+a fixed count and every selection is a mask or a device-side gather, so a
+step captures in a CUDA graph.  Mesh against height field is rejected by
+the compiler, as in the reference.
 """
 
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -30,10 +36,6 @@ _CONVEX_TYPES = (
     GeomType.SPHERE, GeomType.CAPSULE, GeomType.ELLIPSOID,
     GeomType.CYLINDER, GeomType.BOX, GeomType.MESH,
 )
-
-LATER_ROW = ("ROADMAP Queue A item 11b (the MPR, height-field and mesh "
-             "narrowphases of the general path)")
-
 
 def max_contacts_per_pair(t1: int, t2: int) -> int:
     """Fixed contact-lane count per candidate pair of geom types."""
@@ -528,24 +530,527 @@ _PRIMS = {
 }
 
 
-def unsupported_pairs(model: Model) -> list:
-    """The pair groups the general path cannot collide yet (item 11b)."""
-    return [(GeomType(t1).name, GeomType(t2).name)
-            for (t1, t2, _) in model.pair_groups
-            if (GeomType(t1), GeomType(t2)) not in _PRIMS]
+# ---------------------------------------------------------------------------
+# convex-convex narrowphase: Minkowski Portal Refinement over support
+# functions, for every convex pairing without a primitive above.  Fixed
+# iteration counts and masked updates, so a step with MPR pairs captures
+# in a CUDA graph as it is.  Every function takes any leading axes: the
+# env axis, the pairs of one type group and, for the height field, its
+# prisms and the manifold probes.
+# ---------------------------------------------------------------------------
 
 
-def check_supported(model: Model) -> None:
-    """Raise ``NotImplementedError`` naming ROADMAP item 11b for a model
-    with an MPR, height-field or mesh pair."""
-    if model.opt.disable_contact:
-        return
-    bad = unsupported_pairs(model)
-    if bad:
-        names = ", ".join(f"{a}-{b}" for a, b in bad)
-        raise NotImplementedError(
-            f"collision pairs {names} need a narrowphase the port's "
-            f"general path does not have yet: {LATER_ROW}")
+def _support_local(gtype: GeomType, size, verts, dl):
+    """Support point of the geom in its local frame for local directions
+    ``dl (..., 3)`` (need not be unit); ``size (..., 3)``, and for a mesh
+    ``verts (..., V, 3)`` (padded with copies of vertex 0, which change
+    neither the maximum nor the point: argmax keeps the first index)."""
+    eps = 1e-12
+    if gtype in (GeomType.SPHERE, GeomType.CAPSULE):
+        n = dl / torch.clamp(maths.norm(dl), min=eps)[..., None]
+        out = size[..., 0, None] * n
+        if gtype == GeomType.SPHERE:
+            return out
+        cap = torch.sign(dl[..., 2]) * size[..., 1]
+        return torch.stack([out[..., 0], out[..., 1], out[..., 2] + cap], -1)
+    if gtype == GeomType.BOX:
+        return torch.sign(dl) * size
+    if gtype == GeomType.ELLIPSOID:
+        sd = size * dl
+        return size * sd / torch.clamp(maths.norm(sd), min=eps)[..., None]
+    if gtype == GeomType.CYLINDER:
+        r_xy = torch.sqrt(dl[..., 0] * dl[..., 0] + dl[..., 1] * dl[..., 1])
+        safe = torch.clamp(r_xy, min=eps)
+        big = r_xy > eps
+        zero = torch.zeros_like(r_xy)
+        rx = torch.where(big, dl[..., 0] / safe * size[..., 0], zero)
+        ry = torch.where(big, dl[..., 1] / safe * size[..., 0], zero)
+        return torch.stack([rx, ry, torch.sign(dl[..., 2]) * size[..., 1]],
+                           -1)
+    if gtype == GeomType.MESH:
+        return _argmax_vertex(verts, dl)
+    raise NotImplementedError(gtype)
+
+
+def _argmax_vertex(verts, dw):
+    """``verts[argmax(verts @ dw)]`` per leading index: ``verts (..., V,
+    3)`` (broadcast to ``dw``'s leading axes), ``dw (..., 3)``."""
+    verts = verts.expand(dw.shape[:-1] + verts.shape[-2:])
+    idx = torch.argmax((verts * dw[..., None, :]).sum(-1), dim=-1)
+    return _take(verts, idx)
+
+
+class _Support:
+    """World support map of one geom per leading index: ``pos (..., 3)``,
+    ``mat (..., 3, 3)``, ``size (..., 3)``, ``verts (..., V, 3)`` for a
+    mesh.  Directions may carry extra axes after the geom's (the manifold
+    probes)."""
+
+    def __init__(self, gtype, pos, mat, size, verts=None):
+        self.gtype, self.pos, self.mat = gtype, pos, mat
+        self.size, self.verts = size.expand_as(pos), verts
+
+    def __call__(self, dw):
+        pos, mat, size, verts = self.pos, self.mat, self.size, self.verts
+        for _ in range(dw.dim() - pos.dim()):
+            pos, size, mat = pos[..., None, :], size[..., None, :], \
+                mat[..., None, :, :]
+            verts = None if verts is None else verts[..., None, :, :]
+        dl = maths.matTvec(mat, dw)
+        return pos + maths.matvec(mat, _support_local(self.gtype, size,
+                                                      verts, dl))
+
+
+def _sel(c, xs, ys):
+    """``(where(c, x, y) for x, y in zip(xs, ys))`` over (..., 3)."""
+    return tuple(_w(c, x, y) for x, y in zip(xs, ys))
+
+
+def _unit(v, eps=1e-12):
+    return v / torch.clamp(maths.norm(v), min=eps)[..., None]
+
+
+def _mpr(sup1, sup2, c1, c2, n_discover=8, n_refine=14):
+    """Minkowski Portal Refinement on the CSO A - B (the reference's
+    ``_mpr``: portal discovery, refinement, normal polish, witness).
+
+    ``sup_i(d)``: world support points of geom i for world directions
+    ``d (..., 3)``; ``c_i (..., 3)``: interior points.  Returns (dist,
+    pos, normal) with dist < 0 on penetration, pos the witness midpoint
+    and the normal from geom1 into geom2."""
+
+    def cso(d):
+        a = sup1(d)
+        b = sup2(-d)
+        return a - b, a, b
+
+    v0 = c1 - c2
+    v0 = _w(maths.norm(v0) < 1e-10, _vec(v0, 1e-5, 0.0, 0.0), v0)
+    v1, a1, b1 = cso(-v0)
+    d2 = maths.cross(v1, v0)
+    # origin colinear with v0-v1: any direction perpendicular to v0 works
+    alt = maths.cross(v0, _w(torch.abs(v0[..., 0]) < 0.9 * maths.norm(v0),
+                             _vec(v0, 1.0, 0.0, 0.0),
+                             _vec(v0, 0.0, 1.0, 0.0)))
+    d2 = _w(maths.norm(d2) < 1e-12, alt, d2)
+    v2, a2, b2 = cso(d2)
+    d3 = maths.cross(v1 - v0, v2 - v0)
+    flip = maths.dot(d3, v0) > 0
+    d3 = _w(flip, -d3, d3)
+    (v1, a1, b1), (v2, a2, b2) = (_sel(flip, (v2, a2, b2), (v1, a1, b1)),
+                                  _sel(flip, (v1, a1, b1), (v2, a2, b2)))
+    v3, a3, b3 = cso(d3)
+
+    # portal discovery (masked, fixed iteration count)
+    found = torch.zeros_like(flip)
+    for _ in range(n_discover):
+        out13 = maths.dot(maths.cross(v1, v3), v0) < 0
+        out32 = maths.dot(maths.cross(v3, v2), v0) < 0
+        step13 = ~found & out13
+        step32 = ~found & ~out13 & out32
+        found = found | (~out13 & ~out32)
+        v2, a2, b2 = _sel(step13, (v3, a3, b3), (v2, a2, b2))
+        v1, a1, b1 = _sel(step32, (v3, a3, b3), (v1, a1, b1))
+        d = maths.cross(v1 - v0, v2 - v0)
+        d = _w(maths.dot(d, v0) > 0, -d, d)
+        v3, a3, b3 = _sel(found, (v3, a3, b3), cso(d))
+
+    # portal refinement
+    for _ in range(n_refine):
+        n = maths.cross(v2 - v1, v3 - v1)
+        n = _unit(_w(maths.dot(n, v1 - v0) < 0, -n, n))
+        v4, a4, b4 = cso(n)
+        c41 = maths.dot(maths.cross(v4, v1), v0) < 0
+        c42 = maths.dot(maths.cross(v4, v2), v0) < 0
+        c43 = maths.dot(maths.cross(v4, v3), v0) < 0
+        rep1 = (c41 & c42) | (~c41 & ~c43)
+        r2 = ~c41 & c43
+        r3 = c41 & ~c42
+        v1, a1, b1 = _sel(rep1, (v4, a4, b4), (v1, a1, b1))
+        v2, a2, b2 = _sel(r2, (v4, a4, b4), (v2, a2, b2))
+        v3, a3, b3 = _sel(r3, (v4, a4, b4), (v3, a3, b3))
+
+    n = maths.cross(v2 - v1, v3 - v1)
+    n = _unit(_w(maths.dot(n, v1 - v0) < 0, -n, n))
+
+    # normal polish: minimize s(n) = n . support(n) over the unit sphere by
+    # projected support descent, keeping the best iterate (the first
+    # iterate's support is the starting one's)
+    v4 = cso(n)[0]
+    s_best = maths.dot(n, v4)
+    n_best = n
+    eta = 0.5
+    for k in range(17):
+        if k:
+            v4 = cso(n)[0]
+        s = maths.dot(n, v4)
+        better = s < s_best
+        s_best = torch.where(better, s, s_best)
+        n_best = _w(better, n, n_best)
+        if k == 16:
+            break
+        tang = v4 - maths.dot(v4, n)[..., None] * n
+        scale = torch.clamp(maths.norm(v4), min=1e-9)
+        n = _unit(n - (torch.full_like(scale, eta) / scale)[..., None] * tang)
+        eta = eta * 0.85
+    n = n_best
+
+    # witness: the v0 -> origin ray through the portal plane, clamped
+    # barycentrics in (v1, v2, v3)
+    denom = maths.dot(n, -v0)
+    t = maths.dot(n, v1 - v0) / torch.where(torch.abs(denom) > 1e-12, denom,
+                                            torch.ones_like(denom))
+    t = torch.clamp(t, 0.0, 2.0)
+    q = v0 + t[..., None] * (-v0)
+    nn = maths.cross(v2 - v1, v3 - v1)
+    area = maths.dot(nn, nn)
+    lam = torch.stack([maths.dot(maths.cross(v2 - q, v3 - q), nn),
+                       maths.dot(maths.cross(v3 - q, v1 - q), nn),
+                       maths.dot(maths.cross(v1 - q, v2 - q), nn)], -1)
+    lam = lam / torch.where(area > 1e-18, area,
+                            torch.ones_like(area))[..., None]
+    lam = torch.clamp(lam, 0.0, 1.0)
+    lam = lam / torch.clamp(lam.sum(-1), min=1e-12)[..., None]
+    l1, l2, l3 = lam[..., 0, None], lam[..., 1, None], lam[..., 2, None]
+    pa = l1 * a1 + l2 * a2 + l3 * a3
+    pb = l1 * b1 + l2 * b2 + l3 * b3
+    return -s_best, 0.5 * (pa + pb), n
+
+
+MANIFOLD_EPS = 0.05
+
+
+def min_extent(scale_min, eps=MANIFOLD_EPS):
+    """The manifold probes' extent gate ``2 eps scale_min`` (numpy)."""
+    return 2.0 * eps * np.asarray(scale_min, np.float64)
+
+
+def _manifold_lanes(sup1, sup2, pos, n, frame, min_ext, eps=MANIFOLD_EPS):
+    """Perturbed-support manifold probes around an MPR witness (the
+    reference's ``_manifold_lanes``): both support maps under normals
+    tilted toward one tangent direction t in (t1, -t1, t2, -t2), the four
+    probes an axis before the last.  A probe is active (dist = its depth)
+    where the overlap extends past ``min_ext`` (a tensor of
+    :func:`min_extent`, broadcast to ``pos[..., 0]``), else at 1e10.
+    Returns (..., 4), (..., 4, 3), (..., 4, 3, 3)."""
+    tan1, tan2 = frame[..., 1, :], frame[..., 2, :]
+    t = torch.stack([tan1, -tan1, tan2, -tan2], -2)
+    nk = n[..., None, :]
+    da = nk + eps * t
+    da = da / maths.norm(da)[..., None]
+    db = eps * t - nk
+    db = db / maths.norm(db)[..., None]
+    a = sup1(da)
+    b = sup2(db)
+    depth = maths.dot(nk, b - a)
+    pk = pos[..., None, :]
+    ext = torch.clamp(torch.minimum(maths.dot(t, a - pk),
+                                    maths.dot(t, b - pk)), min=0.0)
+    dist = torch.where(ext > min_ext[..., None], depth,
+                       torch.full_like(depth, 1e10))
+    return dist, pk + ext[..., None] * t, frame[..., None, :, :].expand(
+        frame.shape[:-2] + (4, 3, 3))
+
+
+def _with_manifold(sup1, sup2, dist, pos, n, min_ext):
+    """The MPR lane then its four manifold lanes: (..., 5), (..., 5, 3),
+    (..., 5, 3, 3)."""
+    frame = make_frame(n)
+    md, mp, mf = _manifold_lanes(sup1, sup2, pos, n, frame, min_ext)
+    return (torch.cat([dist[..., None], md], -1),
+            torch.cat([pos[..., None, :], mp], -2),
+            torch.cat([frame[..., None, :, :], mf], -3))
+
+
+def _mesh_verts(model: Model, K, geoms):
+    """(verts (P, V, 3), valid (P, V)): the meshes of ``geoms``, padded to
+    the largest vertex count with copies of vertex 0 (marked invalid)."""
+    def padded():
+        out = []
+        for g in geoms:
+            mid = model.geom_dataid[g]
+            adr, num = model.mesh_vertadr[mid], model.mesh_vertnum[mid]
+            out.append(np.asarray(model.mesh_vert, np.float64)[adr:adr + num])
+        vmax = max(len(v) for v in out)
+        return [np.concatenate([v, np.repeat(v[:1], vmax - len(v), 0)])
+                for v in out], [[i < len(v) for i in range(vmax)]
+                                for v in out]
+    key = f"mesh_verts_{tuple(geoms)}"
+    return (K.t(key, lambda: padded()[0]),
+            K.b(key, lambda: padded()[1]))
+
+
+def _group_geoms(model: Model, d, K, geoms):
+    """The world poses and sizes of ``geoms``: (B, P, 3), (B, P, 3, 3),
+    (B, P, 3)."""
+    idx = K.i(f"geoms_{tuple(geoms)}", lambda: list(geoms))
+    pos = d.geom_xpos[:, idx]
+    return pos, d.geom_xmat[:, idx], K.f("geom_size")[idx].expand_as(pos)
+
+
+def _geom_support(model: Model, d, K, geoms):
+    """The :class:`_Support` of ``geoms`` (one geom type) and its pos."""
+    gt = GeomType(model.geom_type[geoms[0]])
+    pos, mat, size = _group_geoms(model, d, K, geoms)
+    verts = _mesh_verts(model, K, geoms)[0] if gt == GeomType.MESH else None
+    return _Support(gt, pos, mat, size, verts), pos
+
+
+def _mpr_pair(model: Model, d, pairs):
+    """The MPR lane and its four manifold lanes of every pair of one
+    convex type group (the reference's ``_mpr_pair``, batched over the
+    pairs): (B, P, 5), (B, P, 5, 3), (B, P, 5, 3, 3)."""
+    K = consts(model, d.qpos)
+    g1, g2 = [p[0] for p in pairs], [p[1] for p in pairs]
+    sup1, c1 = _geom_support(model, d, K, g1)
+    sup2, c2 = _geom_support(model, d, K, g2)
+    dist, pos, n = _mpr(sup1, sup2, c1, c2)
+    sizes = np.asarray(model.geom_size, np.float64)
+    min_ext = K.t(f"mpr_extent_{tuple(pairs)}", lambda: min_extent(
+        [max(min(np.max(sizes[a]), np.max(sizes[b])), 1e-6)
+         for a, b in pairs]))
+    return _with_manifold(sup1, sup2, dist, pos, n, min_ext)
+
+
+# ---------------------------------------------------------------------------
+# height field: the grid of each pair's field as per-pair tensors over the
+# flat elevation data, so that the pairs of a group (which may use fields of
+# different sizes) run as one batch
+# ---------------------------------------------------------------------------
+
+
+class HField(NamedTuple):
+    """Per-pair height-field constants, (P,) each (``lift`` adds trailing
+    axes), and the model's flat normalized elevation data."""
+
+    sx: torch.Tensor
+    sy: torch.Tensor
+    sz: torch.Tensor
+    zbot: torch.Tensor
+    ncol1: torch.Tensor   # ncol - 1, float
+    nrow1: torch.Tensor
+    fx_hi: torch.Tensor   # ncol - 1 - 1e-6
+    fy_hi: torch.Tensor
+    ncol: torch.Tensor    # int64
+    nrow: torch.Tensor
+    adr: torch.Tensor
+    i0_hi: torch.Tensor   # max(ncol - 4, 0)
+    j0_hi: torch.Tensor
+    data: torch.Tensor    # (sum nrow * ncol,)
+
+    def lift(self, n: int) -> "HField":
+        return HField(*[x.reshape(x.shape + (1,) * n) for x in self[:-1]],
+                      self.data)
+
+    def z(self, i, j):
+        """Elevation of grid point (i, j) (column, row) times sz."""
+        return self.data[self.adr + j * self.ncol + i] * self.sz
+
+
+def hfield_consts(model: Model, K, hgeoms) -> HField:
+    """The :class:`HField` of the height-field geoms ``hgeoms``."""
+    hids = [model.geom_dataid[g] for g in hgeoms]
+    key = f"hfield_{tuple(hids)}"
+    size = np.asarray(model.hfield_size, np.float64).reshape(-1, 4)[hids]
+    nrow = np.array([model.hfield_nrow[h] for h in hids], np.int64)
+    ncol = np.array([model.hfield_ncol[h] for h in hids], np.int64)
+    hs = K.t(key, lambda: size)
+    f = K.t(f"{key}_grid", lambda: np.stack(
+        [ncol - 1, nrow - 1, ncol - 1 - 1e-6, nrow - 1 - 1e-6], 1))
+    i = K.i(f"{key}_index", lambda: np.stack(
+        [ncol, nrow, [model.hfield_adr[h] for h in hids],
+         np.maximum(ncol - 4, 0), np.maximum(nrow - 4, 0)], 1))
+    return HField(hs[:, 0], hs[:, 1], hs[:, 2], -hs[:, 3], f[:, 0], f[:, 1],
+                  f[:, 2], f[:, 3], i[:, 0], i[:, 1], i[:, 2], i[:, 3],
+                  i[:, 4], K.f("hfield_data"))
+
+
+def _hfield_surface(hf: HField, pl):
+    """Signed distance of local points ``pl (..., 3)`` to the height-field
+    surface and its upward unit normal: the triangle under the point, the
+    lower (00, 10, 11) for u >= v, else the upper (00, 11, 01)."""
+    sx, sy = hf.sx, hf.sy
+    fx = (pl[..., 0] + sx) / (2 * sx) * hf.ncol1
+    fy = (pl[..., 1] + sy) / (2 * sy) * hf.nrow1
+    fx = torch.minimum(torch.clamp(fx, min=0.0), hf.fx_hi)
+    fy = torch.minimum(torch.clamp(fy, min=0.0), hf.fy_hi)
+    i = torch.floor(fx).to(torch.int64)
+    j = torch.floor(fy).to(torch.int64)
+    u = fx - i.to(fx.dtype)
+    v = fy - j.to(fy.dtype)
+    dx = 2 * sx / hf.ncol1
+    dy = 2 * sy / hf.nrow1
+    x0 = -sx + i.to(fx.dtype) * dx
+    y0 = -sy + j.to(fy.dtype) * dy
+    z00, z10 = hf.z(i, j), hf.z(i + 1, j)
+    z01, z11 = hf.z(i, j + 1), hf.z(i + 1, j + 1)
+    lower = u >= v
+    a = torch.stack([x0, y0, z00], -1)
+    b = _w(lower, torch.stack([x0 + dx, y0, z10], -1),
+           torch.stack([x0 + dx, y0 + dy, z11], -1))
+    cc = _w(lower, torch.stack([x0 + dx, y0 + dy, z11], -1),
+            torch.stack([x0, y0 + dy, z01], -1))
+    n = maths.cross(b - a, cc - a)
+    n = _unit(n * torch.sign(n[..., 2, None]))
+    return maths.dot(n, pl - a), n
+
+
+def _hfield_point_at(hpos, hmat, hf, point):
+    """(signed distance, world-up normal) of world points vs the field."""
+    sd, nl = _hfield_surface(hf, maths.matTvec(hmat, point - hpos))
+    return sd, maths.matvec(hmat, nl)
+
+
+def _hfield_sphere_at(hpos, hmat, hf, center, r):
+    dist, n = _hfield_point_at(hpos, hmat, hf, center)
+    dist = dist - r
+    return dist, center - n * (r + 0.5 * dist)[..., None], n
+
+
+def _hfield_sphere(hpos, hmat, hf, cpos, cmat, csize):
+    return _one(*_hfield_sphere_at(hpos, hmat, hf, cpos, csize[..., 0]))
+
+
+def _hfield_capsule(hpos, hmat, hf, cpos, cmat, csize):
+    """Sphere queries at the two end caps and the segment midpoint."""
+    r, h = csize[..., 0, None], csize[..., 1]
+    th = torch.stack([h, -h, h * 0.0], -1)
+    ends = cpos[..., None, :] + th[..., None] * _col(cmat, 2)[..., None, :]
+    dist, pos, n = _hfield_sphere_at(hpos[..., None, :],
+                                     hmat[..., None, :, :], hf.lift(1), ends,
+                                     r)
+    return dist, pos, make_frame(n)
+
+
+def _hfield_prism_mpr(hpos, hmat, hf, gsup, gpos, min_ext):
+    """Convex geoms vs height fields through MuJoCo's prism decomposition:
+    the 3x3 cell window around each geom's center splits into 18 triangle
+    prisms, each run through MPR against the geom plus its four manifold
+    probes.  The prisms are an axis (..., 18) and the window origin is a
+    device index, so nothing reads back to the host.  ``gsup`` is the
+    geoms' :class:`_Support` and ``gpos (..., 3)`` their centers;
+    ``min_ext (P,)`` the manifold gate of each pair's prism scale.
+    Returns (..., 90), (..., 90, 3), (..., 90, 3, 3): prism-major, the MPR
+    lane then its four probes."""
+    sx, sy = hf.sx, hf.sy
+    dx = 2 * sx / hf.ncol1
+    dy = 2 * sy / hf.nrow1
+    pl = maths.matTvec(hmat, gpos - hpos)
+    fx = (pl[..., 0] + sx) / (2 * sx) * hf.ncol1
+    fy = (pl[..., 1] + sy) / (2 * sy) * hf.nrow1
+    i0 = torch.minimum(torch.clamp(torch.floor(fx).to(torch.int64) - 1,
+                                   min=0), hf.i0_hi)
+    j0 = torch.minimum(torch.clamp(torch.floor(fy).to(torch.int64) - 1,
+                                   min=0), hf.j0_hi)
+    w = hf.lift(1)
+    cell = torch.arange(9, device=i0.device)
+    i = torch.minimum(i0[..., None] + cell % 3, w.ncol - 2)      # (..., 9)
+    j = torch.minimum(j0[..., None] + cell // 3, w.nrow - 2)
+    x0 = -w.sx + i.to(fx.dtype) * dx[..., None]
+    y0 = -w.sy + j.to(fx.dtype) * dy[..., None]
+    x1 = x0 + dx[..., None]
+    y1 = y0 + dy[..., None]
+    z00, z10 = w.z(i, j), w.z(i + 1, j)
+    z01, z11 = w.z(i, j + 1), w.z(i + 1, j + 1)
+    p00 = torch.stack([x0, y0, z00], -1)
+    p10 = torch.stack([x1, y0, z10], -1)
+    p11 = torch.stack([x1, y1, z11], -1)
+    p01 = torch.stack([x0, y1, z01], -1)
+    top = torch.stack([torch.stack([p00, p10, p11], -2),
+                       torch.stack([p00, p11, p01], -2)], -3)
+    top = top.reshape(top.shape[:-4] + (18, 3, 3))
+    zb = hf.lift(2).zbot.expand(top.shape[:-1])
+    bot = torch.stack([top[..., 0], top[..., 1], zb], -1)
+    verts_l = torch.cat([top, bot], -2)                    # (..., 18, 6, 3)
+    verts_w = (maths.matvec(hmat[..., None, None, :, :], verts_l)
+               + hpos[..., None, None, :])
+
+    def prism_sup(dw):
+        vw = verts_w
+        for _ in range(dw.dim() - vw.dim() + 1):
+            vw = vw[..., None, :, :]
+        return _argmax_vertex(vw, dw)
+
+    # the geom's support broadcasts over the prism axis
+    dist, pos, n = _mpr(prism_sup, gsup, verts_w.mean(-2),
+                        gpos[..., None, :])
+    dist, pos, frame = _with_manifold(prism_sup, gsup, dist, pos, n,
+                                      min_ext[..., None])
+    lead = dist.shape[:-2]
+    return (dist.reshape(lead + (90,)), pos.reshape(lead + (90, 3)),
+            frame.reshape(lead + (90, 3, 3)))
+
+
+def _plane_mesh(ppos, pmat, mpos, mmat, verts, valid):
+    """Plane vs convex mesh: lanes on the 4 deepest hull vertices (the
+    reference's ``jax.lax.top_k`` keeps the lower index on ties, as the
+    stable sort does; a face-down hull has such ties).  ``verts (..., V,
+    3)`` padded, ``valid (..., V)`` marking the mesh's own vertices."""
+    n = _col(pmat, 2)
+    vw = mpos[..., None, :] + maths.matvec(mmat[..., None, :, :], verts)
+    dist = ((vw - ppos[..., None, :]) * n[..., None, :]).sum(-1)
+    dist = torch.where(valid, dist, torch.full_like(dist, math.inf))
+    idx = torch.sort(dist, dim=-1, stable=True).indices[..., :4]
+    dsel = torch.gather(dist, -1, idx)
+    pos = _take_rows(vw, idx) - (0.5 * dsel)[..., None] * n[..., None, :]
+    f = make_frame(n)
+    return dsel, pos, f[..., None, :, :].expand(f.shape[:-2] + (4, 3, 3))
+
+
+_HF = {GeomType.SPHERE: _hfield_sphere, GeomType.CAPSULE: _hfield_capsule}
+_HF_PRISM = (GeomType.BOX, GeomType.ELLIPSOID, GeomType.CYLINDER)
+
+
+def _hfield_pairs(model: Model, d, pairs):
+    """Every (height field, geom) pair of one type group: the analytic
+    sphere and capsule pairs, or the prism MPR for box, ellipsoid and
+    cylinder."""
+    K = consts(model, d.qpos)
+    h = [p[0] for p in pairs]
+    g = [p[1] for p in pairs]
+    hf = hfield_consts(model, K, h)
+    hpos, hmat, _ = _group_geoms(model, d, K, h)
+    gt = GeomType(model.geom_type[g[0]])
+    if gt in _HF:
+        gpos, gmat, gsize = _group_geoms(model, d, K, g)
+        return _HF[gt](hpos, hmat, hf, gpos, gmat, gsize)
+    sup, gpos = _geom_support(model, d, K, g)
+    return _hfield_prism_mpr(hpos, hmat, hf, sup, gpos, K.t(
+        f"prism_extent_{tuple(pairs)}", lambda: min_extent(
+            [_prism_scale(model, gh, gg) for gh, gg in pairs])))
+
+
+def _prism_scale(model: Model, gh: int, gg: int) -> float:
+    """The manifold gate's scale of a prism pair: the smaller of the grid
+    cell and the geom's largest half-size (the reference's rule)."""
+    hid = model.geom_dataid[gh]
+    hs = np.asarray(model.hfield_size, np.float64).reshape(-1, 4)[hid]
+    ncol, nrow = model.hfield_ncol[hid], model.hfield_nrow[hid]
+    cell = max(2.0 * hs[0] / (ncol - 1), 2.0 * hs[1] / (nrow - 1))
+    size = float(np.max(np.asarray(model.geom_size)[gg]))
+    return float(max(min(cell, size), 1e-6))
+
+
+def _group_lanes(model: Model, d, t1, t2, pairs):
+    """The contact lanes of one pair group: (B, P, k), (B, P, k, 3),
+    (B, P, k, 3, 3) (the reference's dispatcher)."""
+    key = (GeomType(t1), GeomType(t2))
+    K = consts(model, d.qpos)
+    if key in _PRIMS:
+        p1, m1, s1 = _group_geoms(model, d, K, [p[0] for p in pairs])
+        p2, m2, s2 = _group_geoms(model, d, K, [p[1] for p in pairs])
+        return _PRIMS[key](p1, m1, s1, p2, m2, s2)
+    if key == (GeomType.PLANE, GeomType.MESH):
+        p1, m1, _ = _group_geoms(model, d, K, [p[0] for p in pairs])
+        g2 = [p[1] for p in pairs]
+        p2, m2, _ = _group_geoms(model, d, K, g2)
+        verts, valid = _mesh_verts(model, K, g2)
+        return _plane_mesh(p1, m1, p2, m2, verts, valid)
+    if key[0] == GeomType.HFIELD and (key[1] in _HF or key[1] in _HF_PRISM):
+        return _hfield_pairs(model, d, pairs)
+    if key[0] in _CONVEX_TYPES and key[1] in _CONVEX_TYPES:
+        return _mpr_pair(model, d, pairs)
+    raise NotImplementedError(f"collision {key[0].name}-{key[1].name}")
 
 
 def collision(model: Model, d):
@@ -553,20 +1058,11 @@ def collision(model: Model, d):
     model's flattened pair order."""
     if model.npair == 0 or model.opt.disable_contact:
         return d
-    check_supported(model)
     K = consts(model, d.qpos)
     bsz = d.qpos.shape[0]
-    gsize = K.f("geom_size")
     dists, poss, frames = [], [], []
-    for gi, (t1, t2, pairs) in enumerate(model.pair_groups):
-        fn = _PRIMS[(GeomType(t1), GeomType(t2))]
-        g1 = K.i(f"pair_g1_{gi}", lambda p=pairs: [q[0] for q in p])
-        g2 = K.i(f"pair_g2_{gi}", lambda p=pairs: [q[1] for q in p])
-        dist, pos, frame = fn(
-            d.geom_xpos[:, g1], d.geom_xmat[:, g1],
-            gsize[g1].expand(bsz, -1, -1),
-            d.geom_xpos[:, g2], d.geom_xmat[:, g2],
-            gsize[g2].expand(bsz, -1, -1))
+    for (t1, t2, pairs) in model.pair_groups:
+        dist, pos, frame = _group_lanes(model, d, t1, t2, pairs)
         dists.append(dist.reshape(bsz, -1))
         poss.append(pos.reshape(bsz, -1, 3))
         frames.append(frame.reshape(bsz, -1, 3, 3))
@@ -609,26 +1105,30 @@ def contact_condims(model: Model) -> list[int]:
 
 def geom_distance(model: Model, d, g1: int, g2: int):
     """(dist (B,), p1 (B, 3), p2 (B, 3)): smallest signed distance between
-    two geoms and the witness points (mj_geomDistance analog) for pairs
-    with a primitive; other pairs raise (ROADMAP item 11b)."""
+    two geoms and the witness points on each surface (mj_geomDistance
+    analog, serving the geomdist/geomnormal/geomfromto sensors): the
+    primitive narrowphase where the type pair has one, MPR for the other
+    convex pairs; a multi-lane narrowphase reports its nearest lane."""
     t1 = GeomType(model.geom_type[g1])
     t2 = GeomType(model.geom_type[g2])
     flip = False
     if (t1, t2) not in _PRIMS and (t2, t1) in _PRIMS:
         g1, g2, t1, t2, flip = g2, g1, t2, t1, True
-    if (t1, t2) not in _PRIMS:
+    if (t1, t2) in _PRIMS:
+        K = consts(model, d.qpos)
+        p1, m1, s1 = _group_geoms(model, d, K, [g1])
+        p2, m2, s2 = _group_geoms(model, d, K, [g2])
+        dist, pos, frame = _PRIMS[(t1, t2)](p1, m1, s1, p2, m2, s2)
+    elif t1 in _CONVEX_TYPES and t2 in _CONVEX_TYPES:
+        dist, pos, frame = _mpr_pair(model, d, [(g1, g2)])
+    else:
         raise NotImplementedError(
-            f"geom distance for pair {t1.name}-{t2.name}: {LATER_ROW}")
-    K = consts(model, d.qpos)
-    gsize = K.f("geom_size")
-    bsz = d.qpos.shape[0]
-    dist, pos, frame = _PRIMS[(t1, t2)](
-        d.geom_xpos[:, g1], d.geom_xmat[:, g1], gsize[g1].expand(bsz, 3),
-        d.geom_xpos[:, g2], d.geom_xmat[:, g2], gsize[g2].expand(bsz, 3))
+            f"geom distance for pair {t1.name}-{t2.name}")
+    dist, pos, n = dist[:, 0], pos[:, 0], frame[:, 0, :, 0, :]
     k = torch.argmin(dist, dim=-1)
     dmin = _take1(dist, k)
     p = _take(pos, k)
-    n = _take(frame[..., 0, :], k)
+    n = _take(n, k)
     p1 = p - 0.5 * dmin[:, None] * n
     p2 = p + 0.5 * dmin[:, None] * n
     if flip:

@@ -60,7 +60,11 @@ def sensor_refresh(model: Model, d):
 
 def step(model: Model, d):
     """Advance every env by one timestep (mj_step)."""
-    d = forward(model, d)
+    return integrate(model, forward(model, d))
+
+
+def integrate(model: Model, d):
+    """The integrator's update of a forward-filled ``d``."""
     integ = model.opt.integrator
     if integ == Integrator.EULER:
         return _integrate.euler(model, d)

@@ -4,8 +4,8 @@ The port of ``oxide_control_tpu/physics/sensor.py``: every sensor family
 of the reference, each stage writing its sensors' slices of
 ``Data.sensordata (B, nsensordata)``.  The dispatch is a build-time loop
 over the static sensor table, so a model without sensors runs none of it.
-The geom-distance family on a pair without a primitive narrowphase (MPR)
-raises, naming ROADMAP item 11b.
+The geom-distance family runs on every convex pair, MPR pairs included
+(``collision.geom_distance``).
 """
 
 from __future__ import annotations

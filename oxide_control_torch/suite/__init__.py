@@ -4,6 +4,7 @@ The reference's whole suite (BASELINE.json's config ladder): pendulum
 swingup, cartpole balance/swingup, cheetah run, walker stand/walk/run and
 humanoid stand/walk/run.  Usage::
 
+    env = suite.load("cheetah", "run")                  # one env, on cuda
     benv = suite.load_batched("cheetah", "run", 4096)   # on cuda
 """
 
@@ -12,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..api.environment import BatchedEnvironment
+from ..api.environment import BatchedEnvironment, Environment
 from . import cartpole, cheetah, humanoid, pendulum, walker
 from .common import asset_path, load_asset
 
@@ -32,10 +33,7 @@ _REGISTRY = {
 ALL_TASKS = tuple(sorted(_REGISTRY))
 
 
-def load_batched(domain: str, task: str, num_envs: int, dtype=np.float32,
-                 device=None, **kwargs) -> BatchedEnvironment:
-    """Build a lockstep BatchedEnvironment on ``device`` (None: the
-    current CUDA device; raises without one)."""
+def _make(domain: str, task: str, dtype, kwargs):
     try:
         factory = _REGISTRY[(domain, task)]
     except KeyError:
@@ -43,6 +41,21 @@ def load_batched(domain: str, task: str, num_envs: int, dtype=np.float32,
             f"unknown task {domain}/{task}; available: {ALL_TASKS}"
         ) from None
     model, task_obj = factory(dtype=dtype, **kwargs)
-    tdtype = torch.from_numpy(np.zeros(0, dtype=dtype)).dtype
+    return model, task_obj, torch.from_numpy(np.zeros(0, dtype=dtype)).dtype
+
+
+def load(domain: str, task: str, dtype=np.float64, device=None,
+         **kwargs) -> Environment:
+    """Build one Environment on ``device`` (None: the current CUDA device;
+    raises without one)."""
+    model, task_obj, tdtype = _make(domain, task, dtype, kwargs)
+    return Environment(model, task_obj, device=device, dtype=tdtype)
+
+
+def load_batched(domain: str, task: str, num_envs: int, dtype=np.float32,
+                 device=None, **kwargs) -> BatchedEnvironment:
+    """Build a lockstep BatchedEnvironment on ``device`` (None: the
+    current CUDA device; raises without one)."""
+    model, task_obj, tdtype = _make(domain, task, dtype, kwargs)
     return BatchedEnvironment(model, task_obj, num_envs, device=device,
                               dtype=tdtype)

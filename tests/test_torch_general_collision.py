@@ -8,17 +8,24 @@ cylinder, ellipsoid), sphere-sphere/capsule/box/cylinder, capsule-capsule,
 capsule-box and box-box (SAT and face clipping, whose top_k compaction the
 port reproduces with a stable sort).  ``geom_distance`` on primitive pairs
 is held to the same bar.  A model with an MPR, height-field or mesh pair
-raises ``NotImplementedError`` naming ROADMAP item 11b, on reset and in
-``collision``.
+resets and collides, its lanes equal to the reference's eager
+``collision()`` (the narrowphases themselves are held to the reference in
+``test_torch_mpr.py``, ``test_torch_hfield.py`` and
+``test_torch_mesh.py``).
 """
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from oxide_control_tpu.mjcf.compile import (
+    load_model_from_xml as ref_load_model_from_xml,
+)
 from oxide_control_tpu.physics import collision as rcoll
 from oxide_control_tpu.physics import smooth as rsmooth
+from oxide_control_tpu.state import make_data as ref_make_data
 from test_hfield import FLAT_XML
 from test_mpr import ELLBOX_XML, TET_MESH_XML
 from test_torch_general_smooth import err, models, seeded
@@ -91,7 +98,9 @@ def contacts(request):
 
 def test_pair_groups_are_primitives(contacts):
     _, (rm, pm), _, _, _ = contacts
-    assert pm.pair_groups and not pcoll.unsupported_pairs(pm)
+    assert pm.pair_groups and all(
+        (pcoll.GeomType(t1), pcoll.GeomType(t2)) in pcoll._PRIMS
+        for (t1, t2, _) in pm.pair_groups)
 
 
 @pytest.mark.parametrize("field", ["dist", "pos", "frame", "includemargin",
@@ -129,10 +138,19 @@ def test_geom_distance_matches_reference(contacts):
 @pytest.mark.parametrize("xml", [ELLBOX_XML, TET_MESH_XML, FLAT_XML],
                          ids=["mpr", "mesh", "hfield"])
 def test_mpr_hfield_mesh_pairs_raise(xml):
+    """Models with MPR, mesh and height-field pairs, which raised before
+    their narrowphases were ported: ``reset`` runs, and ``collision`` on
+    the reset state gives the reference's lanes."""
     model = load_model_from_xml(xml, dtype=np.float64)
+    rm = ref_load_model_from_xml(xml, dtype=np.float64)
     benv = BatchedEnvironment(model, BenchTask(), 2, device="cpu",
                               dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        benv.reset(torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        pcoll.check_supported(model)
+    data = benv.reset(torch.Generator().manual_seed(0))
+    got = pcoll.collision(model, data).contact
+    for e in range(2):
+        d = ref_make_data(rm).replace(
+            geom_xpos=jnp.asarray(data.geom_xpos[e].numpy()),
+            geom_xmat=jnp.asarray(data.geom_xmat[e].numpy()))
+        want = rcoll.collision(rm, d).contact
+        for f in ("dist", "pos", "frame", "includemargin", "friction"):
+            assert err(getattr(want, f), getattr(got, f)[e]) < BAR, f
