@@ -15,8 +15,11 @@ uniform ctrl, and the in-kernel (64, 64) policy collecting trajectories
 on cheetah (K = 200), humanoid (K = 100) and walker-walk-tendon-sensors@4096
 (K = 50: the policy reads gyro, accelerometer, velocimeter and framepos
 rows computed in the kernel, the accelerometer from the carried stage-1
-qacc) -- after building every kernel from the sources in this checkout
-and holding each against its plain PyTorch version.
+qacc) -- and the PPO and ES trainers (``oxide_control_torch.train``) on
+cheetah-run at the reference's defaults, after building every kernel
+from the sources in this checkout and holding each against its plain
+PyTorch version; the env-axis mesh (``parallel.mesh``, ``multitask``,
+``FastRollout(mesh=)``) runs at world size 1 over NCCL.
 Phases, each fatal on failure:
 
 1. device: the card's name and power limit;
@@ -52,8 +55,10 @@ Phases, each fatal on failure:
    under 1e-9); (c) five models outside the kernel class
    (walker under implicitfast with CG, full implicit, a PGS free body,
    elliptic condim 3 under CG, the refsite site transmission), 10 f64
-   steps on the card against the port on the CPU (1e-6), then one step
-   captured in a CUDA graph against the eager step (bit for bit); (d) the
+   steps on the card against the port on the CPU (1e-6; the CPU's
+   steps run in a spawned process from the end of the build), then one
+   step captured in a CUDA graph against the eager step (bit for bit);
+   (d) the
    reference bench's two GENERAL_ALSO rows, cheetah-run-elliptic@4096
    and walker-walk-tendon-sensors@4096 at K = 50 with uniform actions,
    through ``jit_rollout`` (one warm-up call with the graph capture, 10
@@ -61,7 +66,9 @@ Phases, each fatal on failure:
    ~120 s), then, from one state and generator state, one captured call
    with a new generator (so a new capture) against one eager ``rollout``
    call, which is also the eager timing (qpos and reward within 1e-4);
-   a ``general`` JSON line;
+   a ``general`` JSON line.  (a) and (d) run first, with the card to
+   themselves; (b) runs beside phase 8's settles, (c) after them (its
+   graph captures must not overlap another thread's launches);
 8. narrowphase: the MPR, height-field and mesh narrowphases on the
    general path, with seven models of the reference's tests (MPR for
    ellipsoid-box, sphere-mesh and capsule-cylinder; the box on the
@@ -87,13 +94,36 @@ Phases, each fatal on failure:
    ``torch.profiler`` over one cheetah-run ``FastRollout.run`` and one
    captured step of the ridged-field box (the top five device
    operations of each on one line); a ``narrowphase`` JSON line;
-9. the kernels line (JSON) and the last line (JSON).
+9. parallel + train: (a) an NCCL group of one rank through
+   ``parallel.mesh.multihost_initialize`` on a ``file://`` store; the
+   sharded ``FastRollout(mesh=)`` of cheetah-run@4096 (K = 200) against
+   the row's (``init`` from one generator state, then both kernels on one
+   ctrl and seed: bit for bit) and its all-reduced mean against the local
+   mean; the hop model's ``jit_rollout`` (B = 1024, K = 24) sharded
+   against unsharded, bit for bit; ``multitask_rollout`` of
+   pendulum-swingup and cartpole-balance at B = 4096 (K = 50) on the one
+   rank, called twice with the same envs, the round-robin warning
+   expected, each task bit for bit its solo ``jit_rollout`` from the same
+   task generator, the second call capturing no graph; then
+   ``dryrun_multichip(1)`` on the group, and again with the group taken
+   down (it spawns one NCCL rank); a ``parallel`` JSON line; (b) PPO at the
+   reference's defaults (``train.ppo``: 60 iterations, B = 2048, K =
+   200, sigma 0.1) and (c) ES at its defaults (``train.es``: 30
+   iterations, B = 4096, K = 200, 8 antithetic pairs), each clearing the
+   reference's margin with its kernel launched once per rollout call (60
+   and 510): a ``train`` JSON line with the curves, wall seconds and
+   env-steps/s;
+10. the kernels line (JSON; the two trainers' builds timed at their
+   parity modes' K = 24 and at K = 200) and the last line (JSON).
 
 Parity runs each main-path row at its own B and K; models without a
-bench row at K = 200 (box-stack, condim46, elliptic-condim4/6 and
-fluid-forces at K = 50; walker-walk-tendon, weld, tendon-equality,
+bench row at K = 25 (box-stack, condim46, elliptic-condim4/6), K = 50
+(fluid-forces, walker-walk-tendon, weld, tendon-equality,
 plane-box-cyl-ellipsoid, ball-free-actuators, mocap-weld and
-applied-forces at K = 100): pendulum-swingup@1024, walker-walk-tendon@4096
+applied-forces) or K = 100 (pendulum-swingup, stateful-actuators,
+box-pairs, ball-limit-spring, weld-ball and sensors-all; the fourbar
+eq-toggle keeps K = 200):
+pendulum-swingup@1024, walker-walk-tendon@4096
 (walker with a fixed knee tendon carrying friction loss),
 stateful-actuators@1024 (filter, filterexact and integrator actuators),
 fourbar eq-toggle@4096 (the connect off on every other env through
@@ -105,9 +135,11 @@ elliptic-condim4@1024 and elliptic-condim6@1024, sensors-all@1024
 (a ball joint, every sensor type of the kernel family, observed and
 collected), fluid-forces@1024 (density, viscosity and wind),
 mocap-weld@1024 (per-env mocap poses and eq_active rows) and
-applied-forces@1024 (per-env qfrc and xfrc on every body); and the two
+applied-forces@1024 (per-env qfrc and xfrc on every body); the two
 options off the main path (exploration noise, Gaussian reset noise) at
-K = 24.
+K = 24; and (d) the two trainers' builds at K = 24: ppo@2048 (the (64,
+64) policy with exploration noise 0.1, collecting) and es@4096 (the
+policy alone).
 
 Every kernel source is built at its team size G (``megakernel.team_rule``:
 G lanes of one warp run one env, splitting the line search's row sums and
@@ -121,12 +153,18 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import multiprocessing
+import os
+import shutil
 import subprocess
+import tempfile
 import time
-from concurrent.futures import ThreadPoolExecutor
+import warnings
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from oxide_control_torch import bench_configs, convert, suite
@@ -138,18 +176,29 @@ from oxide_control_torch.ops import megakernel as mk
 from oxide_control_torch.ops import scalar_graph as sg
 from oxide_control_torch.parallel.rollout import (
     FastRollout,
+    JitRollout,
     jit_rollout,
     mocap_rest_pose,
     rollout,
 )
+from oxide_control_torch.parallel import dryrun
+from oxide_control_torch.parallel.mesh import (
+    make_env_mesh,
+    multihost_initialize,
+    shard_env_state,
+)
+from oxide_control_torch.parallel.multitask import (
+    multitask_rollout,
+    task_generators,
+)
 from oxide_control_torch.physics import forward as pfwd
 from oxide_control_torch.policy import MLPPolicy
+from oxide_control_torch.train import es, ppo
 from oxide_control_torch.suite import walker
 from oxide_control_torch.state import make_data, tree_map
 from oxide_control_torch.suite.common import (
     SensorObsWrapper,
     asset_path,
-    time_limit_done,
 )
 from oxide_control_torch.utils import checkpoint, profiling
 from oxide_control_torch.utils.divergence import divergence_flags
@@ -600,6 +649,7 @@ def stateful_env(batch, device=None):
 # the environments at their batches (the reference bench's, bench.py:67-98)
 ENVS = {
     "cheetah/run": lambda: suite.load_batched("cheetah", "run", 4096),
+    "cheetah/run@2048": lambda: suite.load_batched("cheetah", "run", 2048),
     "walker/walk": lambda: suite.load_batched("walker", "walk", 4096),
     "cartpole/swingup": lambda: suite.load_batched("cartpole", "swingup",
                                                    1024),
@@ -655,38 +705,47 @@ ROWS = (
 )
 # parity modes beside the rows (each row is a mode at its own B and K):
 # (label, task, K, variant).  Cut to keep the smoke inside its time with
-# the narrowphase phase: the five slowest plain versions (box-stack,
-# condim46, the elliptic condim 4/6 models and fluid-forces: 184 s of the
-# plain phase at K = 200 on the H100) run K = 50, and the next seven (53
-# s) K = 100; ~10-33 envs of each still cross the time limit inside the
-# window.
+# the narrowphase and the parallel + train phases: the five slowest plain
+# versions (box-stack, condim46, the elliptic condim 4/6 models and
+# fluid-forces: 184 s of the plain phase at K = 200 on the H100) run
+# K = 25 (fluid-forces K = 50; box-stack's episodes are 2000 steps, the
+# others' 5000); the next seven (53 s at K = 200) K = 50 and six more
+# K = 100; envs of each still cross the time limit inside the window (a
+# mode where none does fails).  The fourbar eq-toggle keeps the row's
+# K = 200: its check compares it with the row's trajectories.
 EXTRA_MODES = (
-    ("pendulum-swingup@1024", "pendulum/swingup", 200, "ctrl"),
-    ("walker-walk-tendon@4096", "walker/walk-tendon", 100, "ctrl"),
-    ("stateful-actuators@1024", "stateful/actuators", 200, "ctrl"),
+    ("pendulum-swingup@1024", "pendulum/swingup", 100, "ctrl"),
+    ("walker-walk-tendon@4096", "walker/walk-tendon", 50, "ctrl"),
+    ("stateful-actuators@1024", "stateful/actuators", 100, "ctrl"),
     # the connect off on every other env through eq_active
     ("fourbar eq-toggle@4096", "fourbar/equality", 200, "toggle"),
-    ("weld@1024", "weld", 100, "ctrl"),
-    ("tendon-equality@1024", "tendon-equality", 100, "ctrl"),
-    ("box-pairs@1024", "box-pairs", 200, "ctrl"),
-    ("plane-box-cyl-ellipsoid@1024", "plane-shapes", 100, "ctrl"),
-    ("box-stack@1024", "box-stack", 50, "ctrl"),
-    ("ball-limit-spring@1024", "ball-limit-spring", 200, "ctrl"),
-    ("ball-free-actuators@1024", "ball-free-actuators", 100, "ctrl"),
-    ("weld-ball@1024", "weld-ball", 200, "ctrl"),
-    ("condim46@1024", "condim46", 50, "ctrl"),
-    ("elliptic-condim4@1024", "elliptic-condim4", 50, "ctrl"),
-    ("elliptic-condim6@1024", "elliptic-condim6", 50, "ctrl"),
+    ("weld@1024", "weld", 50, "ctrl"),
+    ("tendon-equality@1024", "tendon-equality", 50, "ctrl"),
+    ("box-pairs@1024", "box-pairs", 100, "ctrl"),
+    ("plane-box-cyl-ellipsoid@1024", "plane-shapes", 50, "ctrl"),
+    ("box-stack@1024", "box-stack", 25, "ctrl"),
+    ("ball-limit-spring@1024", "ball-limit-spring", 100, "ctrl"),
+    ("ball-free-actuators@1024", "ball-free-actuators", 50, "ctrl"),
+    ("weld-ball@1024", "weld-ball", 100, "ctrl"),
+    ("condim46@1024", "condim46", 25, "ctrl"),
+    ("elliptic-condim4@1024", "elliptic-condim4", 25, "ctrl"),
+    ("elliptic-condim6@1024", "elliptic-condim6", 25, "ctrl"),
     # ctrl input, the observation (the sensor rows) collected
-    ("sensors-all@1024", "sensors-all", 200, "collect"),
+    ("sensors-all@1024", "sensors-all", 100, "collect"),
     ("fluid-forces@1024", "fluid-forces", 50, "ctrl"),
     # per-env mocap poses and eq_active rows
-    ("mocap-weld@1024", "mocap-weld", 100, "mocap"),
+    ("mocap-weld@1024", "mocap-weld", 50, "mocap"),
     # per-env qfrc and xfrc on every body
-    ("applied-forces@1024", "applied-forces", 100, "applied"),
+    ("applied-forces@1024", "applied-forces", 50, "applied"),
     ("cheetah explore", "cheetah/run", 24, "explore"),
     ("cheetah gaussian_reset", "cheetah/run", 24, "gauss"),
+    # the two trainers' builds at their batches: PPO's (64, 64) policy
+    # with exploration noise and collection, ES's policy alone
+    ("ppo@2048", "cheetah/run@2048", 24, "ppo"),
+    ("es@4096", "cheetah/run", 24, "es"),
 )
+# the trainers' parity modes, named after the trainer and its batch
+TRAINER_MODES = ("ppo@2048", "es@4096")
 # the rows also timed at G = 1, in turns with their team builds
 SOLO_ROWS = ("cheetah-run@4096", "humanoid-run@8192",
              "humanoid-run-policy-obs@8192")
@@ -1130,23 +1189,11 @@ def bound(fn, built, resets):
 # The ball starts 2 cm above the floor (the reference's test starts it at
 # 0.35 m, where it never lands within a 15-step episode), so that every
 # env is in contact inside the window
-HOP_XML = """
-<mujoco>
-  <option timestep="0.01" solver="Newton" iterations="4" tolerance="0"/>
-  <worldbody>
-    <geom name="floor" type="plane" size="5 5 .1"/>
-    <body name="ball" pos="0 0 0.17">
-      <joint name="z" type="slide" axis="0 0 1"/>
-      <joint name="tilt" type="hinge" axis="0 1 0" range="-1 1"
-             limited="true"/>
-      <geom name="b" type="sphere" size="0.15" mass="1"/>
-    </body>
-  </worldbody>
-  <actuator>
-    <motor joint="z" gear="10"/>
-  </actuator>
-</mujoco>
-"""
+def hop_env(batch):
+    return dryrun.hop_env(batch, height=0.17, time_limit=0.15,
+                          reset_noise=0.0)
+
+
 HOP_B, HOP_K = 1024, 24
 # the general path against the kernel, f32 (tests/test_megakernel.py:109-115)
 HOP_BARS = dict(qpos=1e-4, qvel=1e-3, reward=1e-4)
@@ -1168,32 +1215,6 @@ CONVERGED_BAR = 1e-9
 NUDGE, NUDGE_BAR = 1e-14, 1e-9
 F64_SEED = 9
 GENERAL_B, GENERAL_K = 4096, 50
-
-
-class HopTask:
-    """Reward clip(qpos[0], 0, 1), episodes of 15 steps, no reset noise."""
-
-    discount = 1.0
-    time_limit = 0.15
-
-    def init_episode(self, model, data, generator):
-        return data
-
-    def observe(self, model, data):
-        return torch.cat([data.qpos, data.qvel], -1)
-
-    def reward(self, model, data, obs, action):
-        return torch.clamp(data.qpos[:, 0], 0.0, 1.0)
-
-    def done(self, model, data, obs):
-        return time_limit_done(data, self.time_limit)
-
-    def kernel_hooks(self, model):
-        return mk.EnvHooks(
-            reward=lambda bk, q, v, c: bk.clip(q[0], 0.0, 1.0),
-            time_limit=self.time_limit, reset_noise=0.0,
-            observe=lambda bk, q, v: list(q) + list(v),
-            n_obs=model.nq + model.nv)
 
 
 # models outside the kernel class (tests/test_golden.py:171-185, 257-276,
@@ -1324,6 +1345,13 @@ F64_ROWS = (
 )
 
 
+# f64 steps of each outside model, card against CPU, of each f64 row and
+# of the walker's converged leg (host-bound: ~4 s a step on the card for
+# the elliptic CG model, ~7 s for the converged walker; the CPU's steps
+# run in a process of their own beside the card's phases)
+OUTSIDE_STEPS, F64_STEPS, CONVERGED_STEPS = 10, 10, 5
+
+
 def seeded_data(model, b, device, dtype, seed, qn, vn, shift):
     """make_data with qpos0 + U(-qn, qn) (plus ``shift``), qvel U(-vn, vn)
     and ctrl U(-1, 1), from one numpy seed (the same on every device)."""
@@ -1341,8 +1369,8 @@ def seeded_data(model, b, device, dtype, seed, qn, vn, shift):
 def general_hop_phase(fn):
     """BatchedEnvironment.step on the card against the rollout kernel, f32,
     the same ctrl, through resets."""
-    model = fn.model
-    benv = BatchedEnvironment(model, HopTask(), HOP_B)
+    benv = hop_env(HOP_B)
+    model = benv.model
     gen = torch.Generator(device="cuda").manual_seed(3)
     data = benv.reset(gen)
     ctrl = torch.empty((HOP_K, HOP_B, model.nu), device="cuda").uniform_(
@@ -1418,16 +1446,17 @@ def f64_cross_path(model, b, shift, steps):
 
 def general_f64_phase():
     """The general step against the plain scalar-graph step, both f64 on
-    the card, 10 steps from seeded states (and the walker row's converged
-    leg: 50 Newton iterations, 5 steps)."""
+    the card, F64_STEPS steps from seeded states (and the walker row's
+    converged leg: 50 Newton iterations, CONVERGED_STEPS steps)."""
     out = {}
     for name, load, shift in F64_ROWS:
         benv = load()
-        legs = [(name, benv.model, 10, dict(qpos=F64_BAR,
+        legs = [(name, benv.model, F64_STEPS, dict(qpos=F64_BAR,
                                             qvel=F64_QVEL_BAR))]
         if name.startswith("walker"):
             legs.append((f"{name} converged", benv.model.replace(
-                opt=dataclasses.replace(benv.model.opt, iterations=50)), 5,
+                opt=dataclasses.replace(benv.model.opt, iterations=50)),
+                CONVERGED_STEPS,
                 dict(qpos=CONVERGED_BAR, qvel=CONVERGED_BAR)))
         for leg, model, steps, bars in legs:
             worst, rows = f64_cross_path(model, benv.num_envs, shift, steps)
@@ -1489,27 +1518,43 @@ def captured_step_gap(model, d):
     return float(env_gaps(out, eager).max())
 
 
-def general_outside_phase():
-    """Models outside the kernel class, 10 f64 steps on the card against
-    the same steps of the port on the CPU, and one more step on the card
-    captured in a CUDA graph against the eager step (bit for bit)."""
+def outside_cpu_steps():
+    """The port on the CPU: OUTSIDE_STEPS f64 steps of each model outside
+    the kernel class from the seeded state the card starts from ->
+    ``{name: (qpos, qvel)}``.  Run in a process of its own, beside the
+    card's phases."""
+    out = {}
+    for name, (xml, qn, vn, shift) in OUTSIDE_MODELS.items():
+        model = load_model_from_xml(xml, np.float64)
+        d = seeded_data(model, 64, "cpu", torch.float64, 13, qn, vn, shift)
+        for _ in range(OUTSIDE_STEPS):
+            d = pfwd.step(model, d)
+        out[name] = (d.qpos, d.qvel)
+    return out
+
+
+def general_outside_phase(cpu):
+    """Models outside the kernel class, OUTSIDE_STEPS f64 steps on the
+    card against the same steps of the port on the CPU (``cpu``:
+    :func:`outside_cpu_steps`), and one more step on the card captured in
+    a CUDA graph against the eager step (bit for bit)."""
     out = {}
     for name, (xml, qn, vn, shift) in OUTSIDE_MODELS.items():
         model = load_model_from_xml(xml, np.float64)
         if sg.unsupported_reason(model) is None:
             raise AssertionError(f"{name}: the kernel admits the model")
-        ds = [seeded_data(model, 64, dev, torch.float64, 13, qn, vn, shift)
-              for dev in ("cuda", "cpu")]
-        for _ in range(10):
-            ds = [pfwd.step(model, d) for d in ds]
+        d = seeded_data(model, 64, "cuda", torch.float64, 13, qn, vn, shift)
+        for _ in range(OUTSIDE_STEPS):
+            d = pfwd.step(model, d)
         torch.cuda.synchronize()
-        errs = {k: float((getattr(ds[0], k).cpu() - getattr(ds[1], k)).abs()
-                         .max()) for k in ("qpos", "qvel")}
-        errs["captured_vs_eager"] = captured_step_gap(model, ds[0])
-        log(f"general outside the kernel class: {name} (10 f64 steps, B=64): "
+        errs = {k: float((getattr(d, k).cpu() - x).abs().max())
+                for k, x in zip(("qpos", "qvel"), cpu[name])}
+        errs["captured_vs_eager"] = captured_step_gap(model, d)
+        log(f"general outside the kernel class: {name} ({OUTSIDE_STEPS} f64 "
+            "steps, B=64): "
             f"card vs CPU qpos {errs['qpos']:.3e}, qvel {errs['qvel']:.3e} "
             f"(bar {F64_BAR:g}), solver iterations "
-            f"{float(ds[0].solver_niter.double().mean()):.2f}; a captured "
+            f"{float(d.solver_niter.double().mean()):.2f}; a captured "
             f"step vs the eager step {errs['captured_vs_eager']:.3e} "
             "(bar 0)")
         for k in ("qpos", "qvel"):
@@ -2210,14 +2255,16 @@ def profiler_check(roll):
     return dict(fast_rollout=kernel_top, captured_general_step=general_top)
 
 
-def narrowphase_phase(rolls, smi):
+def narrowphase_phase(rolls, smi, beside):
     """The seven rows (timed, the card to themselves), then the settles on
-    their own streams with the untimed checks beside them (card vs CPU,
+    their own streams with the untimed checks beside them (``beside()``,
+    the general path's f64 checks, which capture no graph; card vs CPU,
     ops per step, Physics, a checkpoint), then the profiler: the
-    ``narrowphase`` JSON line."""
+    ``narrowphase`` JSON line's dict and what ``beside`` returned."""
     rows = {name: narrow_row(name, xml, drop)
             for name, xml, drop in NARROW_ROWS}
     cases, t0, future = start_settles()
+    extra = beside()
     for name, xml, drop in NARROW_ROWS:
         narrow_untimed(name, xml, drop, rows[name])
     physics = physics_api_check()
@@ -2227,7 +2274,239 @@ def narrowphase_phase(rolls, smi):
     settles = finish_settles(cases, t0, future)
     prof = profiler_check(rolls["cheetah-run@4096"])
     return dict(rows=rows, settles=settles, physics=physics,
-                checkpoint_bit_identical=ckpt_ok, profiler=prof, card=smi)
+                checkpoint_bit_identical=ckpt_ok, profiler=prof,
+                card=smi), extra
+
+
+# ---------------------------------------------------------------------------
+# the parallel + train phase: the env-axis mesh at world size 1 over NCCL
+# and the two trainers on the rollout kernel
+# ---------------------------------------------------------------------------
+
+MESH_ROW = "cheetah-run@4096"
+MESH_HOP_B, MESH_HOP_K = 1024, 24
+TASKS = (("pendulum", "swingup"), ("cartpole", "balance"))
+TASKS_B, TASKS_K = 4096, 50
+
+
+def same_outputs(a, b):
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def mesh_cheetah_check(mesh, roll):
+    """The sharded FastRollout of cheetah-run@4096 (K = 200) against the
+    row's: init from one generator state, then the two kernels on one
+    ctrl and seed; then one sharded run, its all-reduced mean against the
+    local mean."""
+    benv, k = roll.benv, roll.steps_per_call
+    sharded = FastRollout(benv, k, mesh=mesh)
+    s_state = sharded.init(torch.Generator(device="cuda").manual_seed(11))
+    u_state = roll.init(torch.Generator(device="cuda").manual_seed(11))
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    ctrl = torch.empty((k, benv.model.nu, benv.num_envs),
+                       device="cuda").uniform_(-1.0, 1.0, generator=gen)
+    seed = torch.tensor([20261018], dtype=torch.int32, device="cuda")
+    before = sharded.kernel.launches
+    so = sharded.kernel(*s_state, ctrl, seed)
+    uo = roll.kernel(*u_state, ctrl, seed)
+    torch.cuda.synchronize()
+    if sharded.kernel.launches != before + 1:
+        raise AssertionError("mesh: the sharded kernel did not launch")
+    init_same = same_outputs(s_state, u_state)
+    kernel_same = same_outputs(so, uo)
+    _, traj = sharded.run(s_state, gen)
+    mean = float(sharded.mean_return(traj))
+    local = float(traj.reward_sum.sum() / benv.num_envs)
+    log(f"mesh {MESH_ROW} (world 1, B/world = {sharded.hi - sharded.lo}, "
+        f"K = {k}): init bit-identical {init_same}, sharded kernel "
+        f"bit-identical to the row's {kernel_same}; all-reduced mean "
+        f"{mean!r} vs local {local!r}")
+    if not (init_same and kernel_same):
+        raise AssertionError("mesh: the sharded kernel's outputs differ")
+    if mean != local:
+        raise AssertionError("mesh: the all-reduced mean differs")
+    return dict(init_bit_identical=init_same,
+                kernel_bit_identical=kernel_same, mean_return=mean,
+                local_mean=local)
+
+
+def mesh_hop_check(mesh):
+    """The hop model's jit_rollout (general path, captured) sharded and
+    unsharded from one state and one generator state."""
+    benv = hop_env(MESH_HOP_B)
+    data = benv.reset(torch.Generator(device="cuda").manual_seed(13))
+    outs = []
+    for m in (None, mesh):
+        d = data if m is None else shard_env_state(m, data)
+        fn = jit_rollout(benv, MESH_HOP_K, mesh=m)
+        d, (rew, dones), ret = fn(
+            d, torch.Generator(device="cuda").manual_seed(14))
+        torch.cuda.synchronize()
+        outs.append((d.qpos.clone(), d.qvel.clone(), rew, dones,
+                     float(ret)))
+    same = same_outputs(outs[0][:4], outs[1][:4])
+    resets = int(outs[0][3].sum())
+    log(f"mesh hop@{MESH_HOP_B} jit_rollout (K = {MESH_HOP_K}, {resets} "
+        f"resets): sharded bit-identical to unsharded {same}; mean return "
+        f"{outs[1][4]!r} (all-reduced) vs {outs[0][4]!r}")
+    if not same:
+        raise AssertionError("mesh: the sharded jit_rollout differs")
+    if resets == 0:
+        raise AssertionError("mesh hop: no env reset in the window")
+    return dict(bit_identical=same, resets=resets,
+                mean_return=outs[1][4], unsharded_mean=outs[0][4])
+
+
+def multitask_check(mesh):
+    """Two tasks round-robin on the one rank, called twice with the same
+    envs (generators seeded 15, then 16): each task against its solo
+    jit_rollout from the same task generator, and the second call
+    captures no graph (it replays the first call's)."""
+    benvs = [suite.load_batched(d, t, TASKS_B) for d, t in TASKS]
+    captures = []
+    capture = JitRollout._capture
+
+    def counted(self, *args):
+        captures.append(self)
+        return capture(self, *args)
+
+    out = {}
+    for call, seed in enumerate((15, 16)):
+        t0 = time.perf_counter()
+        JitRollout._capture = counted
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                got = multitask_rollout(benvs, torch.Generator(
+                    device="cuda").manual_seed(seed), TASKS_K, mesh=mesh)
+            torch.cuda.synchronize()
+        finally:
+            JitRollout._capture = capture
+        wall = time.perf_counter() - t0
+        n_captures = len(captures)
+        captures.clear()
+        warned = any("round-robin" in str(w.message) for w in caught)
+        gens = task_generators(
+            torch.Generator(device="cuda").manual_seed(seed), len(benvs))
+        res = {}
+        for (dom, task), benv, g, (data, ret) in zip(TASKS, benvs, gens,
+                                                     got):
+            solo, _, sret = jit_rollout(benv, TASKS_K)(benv.reset(g), g)
+            torch.cuda.synchronize()
+            same = (torch.equal(data.qpos, solo.qpos)
+                    and torch.equal(data.qvel, solo.qvel))
+            res[f"{dom}-{task}"] = dict(bit_identical=same, mean_return=ret,
+                                        solo_mean=float(sret))
+            log(f"multitask call {call} {dom}-{task}@{TASKS_B} (K = "
+                f"{TASKS_K}): state bit-identical to its solo jit_rollout "
+                f"{same}; mean return {ret!r} vs solo {float(sret)!r}")
+            if not same or abs(ret - float(sret)) > 1e-6 * max(1.0,
+                                                               abs(ret)):
+                raise AssertionError(f"multitask {dom}-{task}: differs "
+                                     "from its solo rollout")
+        log(f"multitask call {call}: {len(benvs)} tasks in {wall:.2f} s, "
+            f"{n_captures} graph captures; round-robin warning {warned}")
+        if not warned:
+            raise AssertionError("multitask: no round-robin warning")
+        if call and n_captures:
+            raise AssertionError("multitask: the second call captured "
+                                 f"{n_captures} graphs")
+        out[f"call {call}"] = dict(tasks=res, wall_s=wall,
+                                   graph_captures=n_captures, warned=warned)
+    return out
+
+
+def parallel_phase(rolls):
+    """(a): NCCL at world size 1 through multihost_initialize on a file
+    store, then the mesh checks, multitask and dryrun_multichip(1) on
+    that group; then, the group taken down, dryrun_multichip(1) again,
+    which spawns its own NCCL rank."""
+    store = tempfile.mkdtemp(prefix="oxc-nccl-")
+    try:
+        t0 = time.perf_counter()
+        multihost_initialize(backend="nccl",
+                             init_method="file://" + os.path.join(store, "s"),
+                             rank=0, world_size=1)
+        mesh = make_env_mesh()
+        log(f"parallel: NCCL group of {mesh.world_size} on {mesh.device} in "
+            f"{time.perf_counter() - t0:.2f} s")
+        out = dict(world_size=mesh.world_size, backend=dist.get_backend(),
+                   cheetah=mesh_cheetah_check(mesh, rolls[MESH_ROW]),
+                   hop=mesh_hop_check(mesh), multitask=multitask_check(mesh))
+        t = time.perf_counter()
+        dryrun.dryrun_multichip(1)
+        torch.cuda.synchronize()
+        out["dryrun_s"] = time.perf_counter() - t
+        log(f"dryrun_multichip(1): three stages in {out['dryrun_s']:.2f} s")
+        dist.destroy_process_group()
+        # with no group up, the entry point spawns its own NCCL rank
+        t = time.perf_counter()
+        dryrun.dryrun_multichip(1)
+        out["dryrun_spawned_s"] = time.perf_counter() - t
+        log("dryrun_multichip(1) with no group up: one spawned NCCL rank, "
+            f"three stages in {out['dryrun_spawned_s']:.2f} s")
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+    return out
+
+
+def train_phase(smi):
+    """(b), (c): PPO and ES at the reference's defaults on the card;
+    each must clear its margin (the trainer raises otherwise) and launch
+    its kernel once per rollout call."""
+    out = {}
+    for name, mod, per_iter in (("ppo", ppo, lambda c: 1),
+                                ("es", es, lambda c: 2 * c.pop + 1)):
+        cfg = mod.config_from_env({})
+        h = mod.train(config=cfg, log=log)
+        want = cfg.iters * per_iter(cfg)
+        log(f"train {name}: {h['launches']} launches (want {want}), "
+            f"{h['wall_s']:.2f} s, {h['steps_per_s']:.6e} env-steps/s, "
+            f"first-3 {h['first3']:.3f} -> last-3 {h['last3']:.3f} "
+            f"(margin {h['margin']:.3f})")
+        if h["launches"] != want:
+            raise AssertionError(f"train {name}: {h['launches']} kernel "
+                                 f"launches, want {want}")
+        out[name] = h
+    out["card"] = smi
+    return out
+
+
+def trainer_kernels(modes, plain, par, built, trained):
+    """The trainers' rows of the kernels line: time, bound and plain
+    version at the parity mode's K = 24, and the kernel alone at the
+    trainer's K = 200 on the same kind of inputs."""
+    rows = []
+    for label in TRAINER_MODES:
+        benv, fn, _ = modes[label]
+        args, kw = plain[label]["args"], plain[label]["kw"]
+        ms, out = time_kernel(fn, args, kw)
+        b_ms, by, work = bound(fn, built[label], resets_of(fn, args, out))
+        name = label.split("@")[0]
+        h = trained[name]
+        k200 = mk.build_rollout(benv.model, benv.num_envs, h["steps"],
+                                fn.hooks, emit_obs=fn.emit_obs,
+                                policy=fn.policy)
+        a200, kw200 = parity_inputs(benv, k200, "row")
+        ms200, out200 = time_kernel(k200, a200, kw200)
+        b200, by200, _ = bound(k200, built[label],
+                               resets_of(k200, a200, out200))
+        rows.append(dict(
+            name=f"rollout[{label}]", route="cuda",
+            source="oxide_control_torch/ops/csrc/rollout.cu",
+            replaces=mk.REPLACES, launches=h["launches"],
+            max_abs_err=max(par[label]["errs"].values()), ms=ms,
+            plain_ms=plain[label]["plain_ms"], bound_ms=b_ms, bound_by=by,
+            library_ms=None, steps=fn.steps, bit_identical=par[label]["same"],
+            env_steps_per_s=h["steps_per_s"], team=built[label].team,
+            ms_k200=ms200, bound_ms_k200=b200, bound_by_k200=by200,
+            work=work))
+        log(f"kernel {label}: {ms:.4f} ms per call at K = {fn.steps} "
+            f"(bound {b_ms:.4f} ms, {by}; plain {plain[label]['plain_ms']:.1f}"
+            f" ms), {ms200:.4f} ms at K = {h['steps']} (bound {b200:.4f} ms,"
+            f" {by200}); {h['launches']} launches in training")
+    return rows
+
 
 
 def main():
@@ -2253,14 +2532,21 @@ def main():
     modes = {row: (roll.benv, roll.kernel,
                    "push" if roll.applied_forces else "row")
              for row, roll in rolls.items()}
+    # the trainers' policies: PPO's explores with its sigma, ES's does not
+    trainer_policies = {
+        "ppo": MLPPolicy(hooks.n_obs, cheetah.model.nu, hidden=(64, 64),
+                         explore_sigma=ppo.Config().sigma, generator=gen),
+        "es": MLPPolicy(hooks.n_obs, cheetah.model.nu, hidden=(64, 64),
+                        generator=gen)}
     for label, key, k, variant in EXTRA_MODES:
         benv = benvs[key]
         modes[label] = (benv, mk.build_rollout(
             benv.model, benv.num_envs, k,
             gauss if variant == "gauss"
             else benv.task.kernel_hooks(benv.model),
-            emit_obs=variant in ("explore", "gauss", "collect"),
-            policy=explorer if variant == "explore" else None,
+            emit_obs=variant in ("explore", "gauss", "collect", "ppo"),
+            policy=(explorer if variant == "explore"
+                    else trainer_policies.get(variant)),
             applied_forces=variant == "applied"), variant)
     fma = mk.build_rollout(cheetah.model, 4096, 200, hooks, fmad=True)
     # the one-lane builds the team builds are timed against
@@ -2269,20 +2555,33 @@ def main():
         roll.kernel.hooks, emit_obs=roll.collect, policy=roll.policy,
         team=1) for row, roll in rolls.items() if row in SOLO_ROWS}
 
-    hop_model = load_model_from_xml(HOP_XML, np.float32)
-    hop = mk.build_rollout(hop_model, HOP_B, HOP_K,
-                           HopTask().kernel_hooks(hop_model))
+    hop_benv = hop_env(HOP_B)
+    hop = mk.build_rollout(hop_benv.model, HOP_B, HOP_K,
+                           hop_benv.task.kernel_hooks(hop_benv.model))
+    # dryrun_multichip's two hop sources, built here with the rest
+    dry = {}
+    for sensors in (False, True):
+        denv = dryrun.hop_env(2, "cuda", sensors=sensors)
+        dhooks = denv.task.kernel_hooks(denv.model)
+        pol = (MLPPolicy(dhooks.n_obs, denv.model.nu, hidden=(4,))
+               if sensors else None)
+        dry[f"dryrun hop{' sensors' if sensors else ''}"] = mk.build_rollout(
+            denv.model, 2, 2, dhooks, emit_obs=sensors, policy=pol)
 
     t_build = time.perf_counter()
     pool, futures = start_builds(
         {**{label: fn for label, (_, fn, _) in modes.items()}, "fmad": fma,
          **{f"{row} G=1": fn for row, fn in solo.items()},
-         "general hop": hop})
+         "general hop": hop, **dry})
     philox_phase()
     t = time.perf_counter()
     plain = plain_phase(modes)
     log(f"phase plain: {time.perf_counter() - t:.1f} s")
     built = finish_builds(pool, futures, t_build)
+    # the outside models' CPU steps, in a process of their own from here
+    cpu_pool = ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    cpu_steps = cpu_pool.submit(outside_cpu_steps)
     t = time.perf_counter()
     par = parity_phase(modes, plain)
     timed = timing_phase(rolls, plain, fma, solo)
@@ -2290,16 +2589,24 @@ def main():
     t = time.perf_counter()
     rows = main_path_phase(rolls)
     log(f"phase main path: {time.perf_counter() - t:.1f} s")
+    # the general and narrowphase phases, their timed rows first (the card
+    # to themselves), then the untimed checks: the f64 ones beside the
+    # settles, the outside models (which capture graphs) after them
     t = time.perf_counter()
     hop_errs = general_hop_phase(hop)
-    f64 = general_f64_phase()
-    outside = general_outside_phase()
     general = general_rows_phase(rows, smi)
-    general.update(hop=hop_errs, f64=f64, outside=outside)
-    log(f"phase general: {time.perf_counter() - t:.1f} s")
+    log(f"phase general (hop, rows): {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
-    narrow = narrowphase_phase(rolls, smi)
-    log(f"phase narrowphase: {time.perf_counter() - t:.1f} s")
+    narrow, f64 = narrowphase_phase(rolls, smi, general_f64_phase)
+    outside = general_outside_phase(cpu_steps.result())
+    cpu_pool.shutdown()
+    general.update(hop=hop_errs, f64=f64, outside=outside)
+    log(f"phase narrowphase + general f64 and outside: "
+        f"{time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    parallel = parallel_phase(rolls)
+    trained = train_phase(smi)
+    log(f"phase parallel + train: {time.perf_counter() - t:.1f} s")
 
     kernels = []
     for row, roll in rolls.items():
@@ -2327,9 +2634,12 @@ def main():
         log(f"kernel {row}: {timed[row]['ms']:.4f} ms per call, bound "
             f"{b_ms:.4f} ms ({by}), plain version "
             f"{plain[row]['plain_ms']:.1f} ms per call, {work}")
+    kernels += trainer_kernels(modes, plain, par, built, trained)
     log(f"card: {smi}; whole run {time.perf_counter() - T0:.1f} s")
     print(json.dumps({"general": general}), flush=True)
     print(json.dumps({"narrowphase": narrow}), flush=True)
+    print(json.dumps({"parallel": dict(parallel, card=smi)}), flush=True)
+    print(json.dumps({"train": trained}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -93,11 +93,15 @@ class BatchedEnvironment:
                                        batch=self.num_envs)
         return self._template
 
+    def _episode(self, generator: torch.Generator) -> Data:
+        """New episodes' core state for every env (``task.init_episode``
+        from the reset state)."""
+        return self._task.init_episode(self._model, self._fresh(), generator)
+
     def reset(self, generator: torch.Generator) -> Data:
         """A batch of new episodes (``task.init_episode``) with every
         derived field filled by ``forward``."""
-        data = self._task.init_episode(self._model, self._fresh(), generator)
-        return _forward.forward(self._model, data)
+        return _forward.forward(self._model, self._episode(generator))
 
     def observe(self, data: Data) -> torch.Tensor:
         return self._task.observe(self._model, data)
@@ -107,7 +111,7 @@ class BatchedEnvironment:
         sensordata refreshed at it (pos/vel fresh, the acc family on the
         zero qacc) when the model has sensors; the next step's forward
         recomputes the rest."""
-        data = self._task.init_episode(self._model, self._fresh(), generator)
+        data = self._episode(generator)
         if self._model.nsensor:
             data = _smooth.kinematics(self._model, data)
             data = _forward.sensor_refresh(self._model, data)

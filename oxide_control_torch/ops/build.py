@@ -101,7 +101,11 @@ def _compile(src, flags, out: Path, so: Path, log_path: Path):
     if so.exists() and log_path.exists():
         return 0.0, True
     out.mkdir(parents=True, exist_ok=True)
-    (out / "oxc_model.h").write_text(src.text)
+    # written whole under another name and renamed, so that processes
+    # building one source never read another's half-written header
+    header = out / f"oxc_model.{os.getpid()}.h"
+    header.write_text(src.text)
+    os.replace(header, out / "oxc_model.h")
     tmp = out / f"librollout.{os.getpid()}.so"
     cmd = [_nvcc(), *flags, "-I", str(out), "-I", str(CSRC),
            "-o", str(tmp), str(CSRC / "rollout.cu")]

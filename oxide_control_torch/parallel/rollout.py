@@ -1,17 +1,26 @@
 """Rollouts: K lockstep env steps per call, on the general path or in the
-rollout kernel.
+rollout kernel, on one GPU or sharded over the env axis.
 
-The port of ``oxide_control_tpu/parallel/rollout.py`` on one GPU (the
-env-axis mesh is ROADMAP Queue A item 13).  ``rollout`` runs K steps of
-``BatchedEnvironment.step`` eagerly; ``jit_rollout`` is its analog of
-``jax.jit`` with donated state: on the card it captures one step (policy,
-physics, task, auto-reset) in a ``torch.cuda.CUDAGraph`` over static state
-buffers and replays it K times per call.  ``FastRollout`` packs the
-batch into the kernel's coordinate-major state and runs
-``ops.megakernel.build_rollout`` once per call, with actions either drawn
-uniformly on the device (outside the kernel) or produced by an in-kernel
-``MLPPolicy``.  Per call it also takes the mocap poses, the eq_active
-rows and, with ``applied_forces``, the applied forces of every env.
+The port of ``oxide_control_tpu/parallel/rollout.py``.  ``rollout`` runs K
+steps of ``BatchedEnvironment.step`` eagerly; ``jit_rollout`` is its
+analog of ``jax.jit`` with donated state: on the card it captures one
+step (policy, physics, task, auto-reset) in a ``torch.cuda.CUDAGraph``
+over static state buffers and replays it K times per call.
+``FastRollout`` packs the batch into the kernel's coordinate-major state
+and runs ``ops.megakernel.build_rollout`` once per call, with actions
+either drawn uniformly on the device (outside the kernel) or produced by
+an in-kernel ``MLPPolicy``.  Per call it also takes the mocap poses, the
+eq_active rows and, with ``applied_forces``, the applied forces of every
+env.
+
+Each takes ``mesh=`` (``parallel.mesh.make_env_mesh``): one process per
+device, each holding its rows ``[lo, hi)`` of the batch.  The sharded
+``rollout`` computes the unsharded one (its random draws are the whole
+batch's, of which each rank keeps its rows, as the reference's sharded
+``jax.random`` draws are); the sharded ``FastRollout`` gives each rank
+its own ctrl and seed stream, the analog of the reference's
+``fold_in(rng, axis_index)``.  The consumer reduction, the mean return
+over every env, is an ``all_reduce`` of the ranks' sums.
 """
 
 from __future__ import annotations
@@ -19,32 +28,69 @@ from __future__ import annotations
 import time
 
 import torch
+import torch.distributed as dist
 
 from .. import convert
 from ..api.environment import BatchedEnvironment
 from ..ops import megakernel as mk
 from ..ops import scalar_graph as sg
 from ..state import Data, make_data, mocap_rest_pose, tree_map
+from .mesh import EnvMesh, env_sharding, fold_in, shard_env_state
+
+
+class ShardedEnvironment(BatchedEnvironment):
+    """This rank's rows ``[lo, hi)`` of ``benv``'s batch, on the mesh's
+    device.  It steps those rows only; its episodes (a reset, an
+    auto-reset) are drawn for the whole batch from the caller's generator
+    and cut to its rows, so the union of the shards is the unsharded
+    batch bit for bit.  That costs each rank the whole batch's
+    ``init_episode`` draws at every step (``forward`` runs on its rows)."""
+
+    def __init__(self, benv: BatchedEnvironment, mesh: EnvMesh):
+        if benv.device != mesh.device:
+            raise ValueError(f"the batch lives on {benv.device}, the mesh "
+                             f"on {mesh.device}")
+        self.lo, self.hi = env_sharding(mesh, benv.num_envs)
+        super().__init__(benv.model, benv.task, self.hi - self.lo,
+                         device=mesh.device, dtype=benv.dtype,
+                         auto_reset=benv.auto_reset)
+        self.mesh = mesh
+        self.whole = benv
+
+    def _episode(self, generator: torch.Generator) -> Data:
+        return shard_env_state(self.mesh, self.whole._episode(generator))
 
 
 def uniform_policy(benv: BatchedEnvironment):
     """The default policy: actions uniform in [-1, 1), drawn from the
-    caller's generator."""
-    shape = (benv.num_envs, benv.model.nu)
+    caller's generator (for a :class:`ShardedEnvironment`, the whole
+    batch's actions, cut to its rows)."""
+    rows = slice(None)
+    n = benv.num_envs
+    if isinstance(benv, ShardedEnvironment):
+        rows, n = slice(benv.lo, benv.hi), benv.whole.num_envs
+    shape = (n, benv.model.nu)
 
     def policy(generator, obs):
         a = torch.empty(shape, dtype=benv.dtype, device=benv.device)
-        return a.uniform_(-1.0, 1.0, generator=generator)
+        return a.uniform_(-1.0, 1.0, generator=generator)[rows]
 
     return policy
 
 
-def rollout(benv: BatchedEnvironment, data: Data,
-            generator: torch.Generator, num_steps: int, policy=None):
-    """``num_steps`` lockstep steps of ``benv.step`` -> ``(final_data,
-    (rewards (K, B), dones (K, B)), mean_return)``.  ``policy(generator,
-    obs) -> action (B, nu)`` defaults to uniform actions in [-1, 1)."""
-    policy = policy or uniform_policy(benv)
+def mean_return(returns: torch.Tensor, mesh: EnvMesh | None = None):
+    """The consumer reduction: the mean of the per-env returns ``(B,)``.
+    With a mesh, ``returns`` holds this rank's envs: the ranks' sums are
+    all-reduced over the mesh's group and divided by the whole batch, the
+    same float on every rank."""
+    if mesh is None:
+        return returns.mean()
+    total = returns.sum()
+    dist.all_reduce(total, group=mesh.group)
+    return total / (returns.shape[0] * mesh.world_size)
+
+
+def _steps(benv, data, generator, num_steps, policy):
     obs = benv.observe(data)
     rewards, dones = [], []
     for _ in range(num_steps):
@@ -52,8 +98,26 @@ def rollout(benv: BatchedEnvironment, data: Data,
         obs = ts.observation
         rewards.append(ts.reward)
         dones.append(ts.done)
-    rewards = torch.stack(rewards)
-    return data, (rewards, torch.stack(dones)), rewards.sum(0).mean()
+    return data, torch.stack(rewards), torch.stack(dones)
+
+
+def rollout(benv: BatchedEnvironment, data: Data,
+            generator: torch.Generator, num_steps: int, policy=None,
+            mesh: EnvMesh | None = None):
+    """``num_steps`` lockstep steps of ``benv.step`` -> ``(final_data,
+    (rewards (K, B), dones (K, B)), mean_return)``.  ``policy(generator,
+    obs) -> action (B, nu)`` defaults to uniform actions in [-1, 1).
+
+    With ``mesh``, ``data`` is this rank's shard of ``benv``'s batch
+    (``mesh.shard_env_state``) and the rollout runs on its rows
+    (:class:`ShardedEnvironment`; a given policy sees those rows'
+    observations); the final data, rewards and dones are this rank's,
+    ``mean_return`` is the whole batch's (:func:`mean_return`)."""
+    if mesh is not None:
+        benv = ShardedEnvironment(benv, mesh)
+    data, rewards, dones = _steps(benv, data, generator, num_steps,
+                                  policy or uniform_policy(benv))
+    return data, (rewards, dones), mean_return(rewards.sum(0), mesh)
 
 
 class JitRollout:
@@ -65,10 +129,15 @@ class JitRollout:
     state, replays the step K times and returns the static state (valid
     until the next call).  A graph draws from the one generator it was
     captured with, so a call with another generator captures the step
-    again for that one.  On the CPU every call runs ``rollout``."""
+    again for that one.  On the CPU every call runs ``rollout``.  With
+    ``mesh`` the calls take and return this rank's shard, as ``rollout``
+    does, and the mean return is all-reduced after the replays."""
 
     def __init__(self, benv: BatchedEnvironment, num_steps: int,
-                 policy=None):
+                 policy=None, mesh: EnvMesh | None = None):
+        self.mesh = mesh
+        if mesh is not None:
+            benv = ShardedEnvironment(benv, mesh)
         self.benv = benv
         self.num_steps = num_steps
         self.policy = policy or uniform_policy(benv)
@@ -117,8 +186,10 @@ class JitRollout:
 
     def __call__(self, data: Data, generator: torch.Generator):
         if data.qpos.device.type != "cuda":
-            return rollout(self.benv, data, generator, self.num_steps,
-                           self.policy)
+            data, rewards, dones = _steps(self.benv, data, generator,
+                                          self.num_steps, self.policy)
+            return (data, (rewards, dones),
+                    mean_return(rewards.sum(0), self.mesh))
         if self.graph is None or generator is not self.generator:
             self._capture(data, generator)
         st = self._static
@@ -135,13 +206,15 @@ class JitRollout:
             self.graph.replay()
             rewards[i].copy_(st["reward"])
             dones[i].copy_(st["done"])
-        return st["data"], (rewards, dones), rewards.sum(0).mean()
+        return (st["data"], (rewards, dones),
+                mean_return(rewards.sum(0), self.mesh))
 
 
-def jit_rollout(benv: BatchedEnvironment, num_steps: int, policy=None):
+def jit_rollout(benv: BatchedEnvironment, num_steps: int, policy=None,
+                mesh: EnvMesh | None = None):
     """A :class:`JitRollout` of ``num_steps`` steps (the analog of
     ``jax.jit(rollout)`` with donated state)."""
-    return JitRollout(benv, num_steps, policy)
+    return JitRollout(benv, num_steps, policy, mesh)
 
 
 def unsupported_reason(benv: BatchedEnvironment) -> str | None:
@@ -175,7 +248,9 @@ class Trajectory:
     contributes reward 0 and sets the done flag.  With ``collect=True``:
     ``obs (K, n_obs, B)`` (the pre-step observation the policy acted on),
     ``rewards (K, B)``, ``dones (K, B)`` and, with an in-kernel policy,
-    ``ctrls (K, nu, B)``.
+    ``ctrls (K, nu, B)``.  Under a mesh every tensor holds this rank's
+    envs only (B is the rank's ``hi - lo``); ``FastRollout.mean_return``
+    reduces over the whole batch.
     """
 
     def __init__(self, reward_sum, diverged, obs=None, rewards=None,
@@ -202,29 +277,42 @@ class FastRollout:
 
     ``applied_forces=True`` builds the kernel that takes per-env
     ``qfrc_applied``/``xfrc_applied`` at each call (push randomization).
+
+    ``mesh`` (``parallel.mesh.make_env_mesh``) shards the batch of B envs
+    over the mesh's ranks: the kernel is built for this rank's ``B /
+    world`` envs, the state and the trajectory hold its columns ``[lo,
+    hi)``, and each call draws its ctrl and seed from this rank's stream of
+    the caller's generator (``mesh.fold_in``).  The policy's weights are
+    replicated: each call broadcasts them from the mesh's rank 0.
     """
 
     def __init__(self, benv: BatchedEnvironment, steps_per_call: int,
                  policy=None, collect: bool = False,
-                 applied_forces: bool = False):
+                 applied_forces: bool = False, mesh: EnvMesh | None = None):
         reason = unsupported_reason(benv)
         if reason is not None:
             # the caller chooses the general path (jit_rollout), as the
             # reference leaves that choice to fast_rollout_supported's caller
             raise ValueError(f"model/task not kernel-eligible: {reason}; "
                              "use jit_rollout for the general path")
+        if mesh is not None and benv.device != mesh.device:
+            raise ValueError(f"the batch lives on {benv.device}, the mesh "
+                             f"on {mesh.device}")
         model = benv.model
         self.benv = benv
         self.device = benv.device
         self.steps_per_call = steps_per_call
         self.policy = policy
         self.collect = collect
+        self.mesh = mesh
+        self.lo, self.hi = ((0, benv.num_envs) if mesh is None
+                            else env_sharding(mesh, benv.num_envs))
         hooks = benv.task.kernel_hooks(model)
         self.n_obs = hooks.n_obs
         self.applied_forces = bool(applied_forces)
         self.kernel = mk.build_rollout(
-            model, benv.num_envs, steps_per_call, hooks, emit_obs=collect,
-            policy=policy, applied_forces=applied_forces,
+            model, self.hi - self.lo, steps_per_call, hooks,
+            emit_obs=collect, policy=policy, applied_forces=applied_forces,
         )
         # the mocap bodies' rest poses (body_pos, body_quat), in mocap order
         self._mocap_rest = tuple(torch.as_tensor(a, device=self.device)
@@ -235,8 +323,13 @@ class FastRollout:
         self._n_state = self.kernel.n_state
 
     def init(self, generator: torch.Generator):
-        """Batched reset -> coordinate-major kernel state."""
-        return self.pack(self.benv.reset(generator))
+        """Batched reset -> coordinate-major kernel state.  Under a mesh
+        every rank resets all B envs from ``generator`` and keeps its
+        columns, so the shards together are the unsharded reset."""
+        data = self.benv.reset(generator)
+        if self.mesh is not None:
+            data = shard_env_state(self.mesh, data)
+        return self.pack(data)
 
     def pack(self, data: Data):
         """Env-major Data -> kernel state ``(qpos (nq,B), qvel (nv,B),
@@ -257,9 +350,8 @@ class FastRollout:
     def unpack(self, state) -> Data:
         """Kernel state -> env-major Data with its core fields filled (the
         inverse of :meth:`pack`; derived fields zero), for a checkpoint."""
-        b = self.benv.num_envs
         data = make_data(self.benv.model, state[0].device, state[0].dtype,
-                         batch=b)
+                         batch=state[0].shape[1])
         data = data.replace(
             qpos=state[0].T, qvel=state[1].T,
             act=state[2].T[:, :self.benv.model.na],
@@ -267,6 +359,19 @@ class FastRollout:
         if self._carry_qacc:
             data = data.replace(qacc=state[5].T)
         return data
+
+    def _broadcast_policy(self):
+        """The policy's weights from the mesh's rank 0 to every rank, in
+        place (one flat broadcast)."""
+        params = list(self.policy.parameters())
+        with torch.no_grad():
+            flat = torch.cat([p.reshape(-1) for p in params])
+            dist.broadcast(flat, src=self.mesh.global_rank(0),
+                           group=self.mesh.group)
+            i = 0
+            for p in params:
+                p.copy_(flat[i:i + p.numel()].view_as(p))
+                i += p.numel()
 
     def run(self, state, generator: torch.Generator, eq_active=None, *,
             mocap_pos=None, mocap_quat=None, qfrc_applied=None,
@@ -281,9 +386,12 @@ class FastRollout:
         ``xfrc_applied (B, nbody, 6)`` (default zero).  Every one is
         constant over the K steps.  Each raises where the model or the
         build does not take it: for mocap poses on a model without mocap
-        bodies the reference crashes instead (its default pose is None)."""
+        bodies the reference crashes instead (its default pose is None).
+        Under a mesh these per-env inputs are the whole batch's (B rows);
+        each rank keeps its rows, as its state holds its columns."""
         model = self.benv.model
         b = self.benv.num_envs
+        lo, hi = self.lo, self.hi
         dtype = state[0].dtype
         if model.nmocap == 0 and (mocap_pos is not None
                                   or mocap_quat is not None):
@@ -300,7 +408,7 @@ class FastRollout:
             if tuple(x.shape) != shape:
                 raise ValueError(f"want shape {shape}, not "
                                  f"{tuple(x.shape)}")
-            return x.to(dtype)
+            return x[lo:hi].to(dtype)
 
         mocap = qfrc = xfrc = None
         if model.nmocap:
@@ -325,14 +433,18 @@ class FastRollout:
                 raise ValueError(f"eq_active must have shape "
                                  f"{(b, model.neq)}, not "
                                  f"{tuple(eq_active.shape)}")
-            eq_active = convert.eq_active_to_kernel(eq_active, dtype,
+            eq_active = convert.eq_active_to_kernel(eq_active[lo:hi], dtype,
                                                     self.device)
+        if self.mesh is not None:
+            generator = fold_in(generator, self.mesh.rank)
         ctrl = params = None
         if self.policy is None:
-            ctrl = torch.empty((self.steps_per_call, max(model.nu, 1), b),
-                               dtype=dtype, device=self.device)
+            ctrl = torch.empty((self.steps_per_call, max(model.nu, 1),
+                                hi - lo), dtype=dtype, device=self.device)
             ctrl.uniform_(-1.0, 1.0, generator=generator)
         else:
+            if self.mesh is not None:
+                self._broadcast_policy()
             params = self.policy.kernel_params()
         seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
                              device=self.device, dtype=torch.int32)
@@ -345,3 +457,8 @@ class FastRollout:
             if self.policy is not None:
                 traj.ctrls = out[ns + 5]
         return tuple(out[:ns]), traj
+
+    def mean_return(self, traj: Trajectory):
+        """The mean of ``traj.reward_sum`` over every env of the batch
+        (all-reduced over the mesh: see :func:`mean_return`)."""
+        return mean_return(traj.reward_sum, self.mesh)

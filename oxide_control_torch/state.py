@@ -246,7 +246,7 @@ def reset_data_keyframe(model: Model, data: Data, key) -> Data:
     if isinstance(key, str):
         idx = model.name2id("keyframe", key)
         if idx < 0:
-            raise NameNotFoundError(f"keyframe {key!r} not found")
+            raise NameNotFoundError("keyframe", key)
         key = idx
     if not 0 <= key < model.nkey:
         raise IndexError(f"keyframe index {key} out of range "

@@ -80,7 +80,15 @@ def test_import_leaves_jax_out():
         "oxide_control_torch.physics.sensor, "
         "oxide_control_torch.physics.integrate, "
         "oxide_control_torch.utils.divergence, "
-        "oxide_control_torch.api.environment\n"
+        "oxide_control_torch.utils.checkpoint, "
+        "oxide_control_torch.utils.debug, "
+        "oxide_control_torch.utils.profiling, "
+        "oxide_control_torch.api.environment, "
+        "oxide_control_torch.api.physics, "
+        "oxide_control_torch.parallel.mesh, "
+        "oxide_control_torch.parallel.multitask, "
+        "oxide_control_torch.parallel.dryrun, "
+        "oxide_control_torch.train.ppo, oxide_control_torch.train.es\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('oxide_control_tpu')]\n"
         "assert not bad, bad\n"

@@ -196,6 +196,13 @@ def test_misuse_raises_the_same_error(misuse):
             MISUSES[misuse](p)
         errors.append(type(exc.value))
     ref, port = errors
+    if misuse == "keyframe name":
+        # the reference raises NameNotFoundError with one argument, so its
+        # constructor fails with TypeError; the port raises the error the
+        # reference means
+        assert ref is TypeError, ref
+        assert port is papi.errors.NameNotFoundError, port
+        return
     assert ref.__name__ == port.__name__, (ref, port)
     # the error types come from each package's own api.errors
     if ref.__module__.endswith("api.errors"):
